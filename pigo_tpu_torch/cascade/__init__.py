@@ -1,4 +1,29 @@
-from pigo_tpu_torch.cascade.format import FaceForest, unpack_face_cascade
-from pigo_tpu_torch.cascade.assets import asset_path, load_facefinder
+from pigo_tpu_torch.cascade.format import (
+    FaceForest,
+    PupilForest,
+    unpack_face_cascade,
+    unpack_pupil_cascade,
+)
+from pigo_tpu_torch.cascade.assets import (
+    EYE_CASCADES,
+    MOUTH_CASCADES,
+    NOSE_CASCADE,
+    asset_path,
+    load_facefinder,
+    load_landmark_dir,
+    load_puploc,
+)
 
-__all__ = ["FaceForest", "unpack_face_cascade", "asset_path", "load_facefinder"]
+__all__ = [
+    "FaceForest",
+    "PupilForest",
+    "unpack_face_cascade",
+    "unpack_pupil_cascade",
+    "EYE_CASCADES",
+    "MOUTH_CASCADES",
+    "NOSE_CASCADE",
+    "asset_path",
+    "load_facefinder",
+    "load_landmark_dir",
+    "load_puploc",
+]

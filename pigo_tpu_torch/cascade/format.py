@@ -1,6 +1,6 @@
-"""Binary-exact parser for the frozen PICO face cascade.
+"""Binary-exact parsers for the frozen PICO cascade formats.
 
-The model file is an opaque little-endian binary, loaded read-only.
+The model files are opaque little-endian binaries, loaded read-only.
 
 Face cascade layout (reference: core/pigo.go:51-110):
     8-byte header (skipped)
@@ -12,6 +12,16 @@ Face cascade layout (reference: core/pigo.go:51-110):
         f32  threshold                per-tree soft-cascade threshold
     The reference prepends 4 zero bytes per tree so node 0 is a zero pad and
     internal node n lives at codes[4*n], n in [1, 2^depth - 1).
+
+Pupil/landmark cascade layout (reference: core/puploc.go:38-103):
+    u32 stages                (puploc: 5, lps: 6)
+    f32 scale_mult            (puploc: 0.8, lps: 0.7)
+    u32 trees_per_stage       (20)
+    u32 tree_depth            (puploc: 10, lps: 9)
+    per stage, per tree:
+        int8 codes[4 * 2^depth - 4]   node offsets; node n at codes[4*n],
+                                      n in [0, 2^depth - 1) (no pad)
+        f32  preds[2^depth][2]        leaf (dr, dc) regression outputs
 """
 
 from __future__ import annotations
@@ -39,6 +49,28 @@ class FaceForest:
     @property
     def num_trees(self) -> int:
         return self.codes.shape[0]
+
+    @property
+    def num_leaves(self) -> int:
+        return 1 << self.depth
+
+
+@dataclasses.dataclass(frozen=True)
+class PupilForest:
+    """SoA storage of a pupil/landmark regression forest.
+
+    Shapes (S = stages, T = trees/stage, L = 2^depth):
+        codes: int8 [S, T, L, 4]   node offsets; only nodes [0, L-1) are real,
+                                   slot L-1 is a zero pad for uniform indexing
+        preds: f32  [S, T, L, 2]   leaf (dr, dc)
+    """
+
+    stages: int
+    scale_mult: float
+    trees: int
+    depth: int
+    codes: np.ndarray
+    preds: np.ndarray
 
     @property
     def num_leaves(self) -> int:
@@ -81,3 +113,56 @@ def unpack_face_cascade(packet: bytes) -> FaceForest:
     preds = np.ascontiguousarray(tail[:, :leaves], dtype=np.float32)
     thresh = np.ascontiguousarray(tail[:, leaves], dtype=np.float32)
     return FaceForest(depth=depth, codes=codes, preds=preds, thresh=thresh)
+
+
+def unpack_pupil_cascade(packet: bytes) -> PupilForest:
+    """Parse a pupil/landmark regression cascade binary.
+
+    Byte-for-byte equivalent of the reference deserializer
+    (core/puploc.go:38-103).
+    """
+    buf = memoryview(packet)
+    head_u = np.frombuffer(buf[:16], dtype="<u4")
+    head_f = np.frombuffer(buf[:16], dtype="<f4")
+    stages = int(head_u[0])
+    scale_mult = float(head_f[1])
+    trees = int(head_u[2])
+    depth = int(head_u[3])
+    if not (1 <= stages <= 64) or not (1 <= trees <= 4096) or not (1 <= depth <= 16):
+        raise ValueError(
+            f"invalid pupil cascade header: stages={stages} trees={trees} depth={depth}"
+        )
+
+    leaves = 1 << depth
+    code_bytes = 4 * leaves - 4
+    rec_bytes = code_bytes + 8 * leaves
+    total = stages * trees
+    expected = 16 + total * rec_bytes
+    if len(packet) < expected:
+        raise ValueError(
+            f"pupil cascade truncated: need {expected} bytes, got {len(packet)}"
+        )
+
+    rec = np.frombuffer(buf[16 : 16 + total * rec_bytes], dtype=np.uint8)
+    rec = rec.reshape(total, rec_bytes)
+
+    codes = np.zeros((total, leaves, 4), dtype=np.int8)
+    # Nodes [0, leaves-1) are real; the last slot stays zero (uniform indexing pad).
+    codes[:, : leaves - 1, :] = rec[:, :code_bytes].view(np.int8).reshape(
+        total, leaves - 1, 4
+    )
+    preds = (
+        rec[:, code_bytes:]
+        .copy()
+        .view("<f4")
+        .reshape(total, leaves, 2)
+        .astype(np.float32)
+    )
+    return PupilForest(
+        stages=stages,
+        scale_mult=scale_mult,
+        trees=trees,
+        depth=depth,
+        codes=codes.reshape(stages, trees, leaves, 4),
+        preds=preds.reshape(stages, trees, leaves, 2),
+    )

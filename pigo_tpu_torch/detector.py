@@ -1,0 +1,466 @@
+"""FaceDetector on PyTorch: the face -> pupils -> landmarks pipeline.
+
+Mirrors pigo_tpu/detector.py's host pipeline and the reference CLI
+(cmd/pigo/main.go):
+  - RunCascade + ClusterDetections with the CLI defaults,
+  - per-face eye anchors (main.go:416-421, :454-458):
+        left  = (row - 0.075*s, col - 0.175*s), scale 0.25*s
+        right = (row - 0.075*s, col + 0.185*s), scale 0.25*s
+    gated on face.Q > 5.0 and face.Scale > 50 (main.go:360, :404),
+  - the 15-point landmark schedule (5 eye cascades x2 flips, 4 mouth,
+    lp84 as nose via flipV; main.go:493-564),
+  - JSON export schema {face:{x,y,size}, eyes:[...], landmark_points:[...]}
+    (main.go:89-100), where x is the image column and y the row.
+
+Per frame the card runs one face-cascade launch, then, for a frame with a
+qualifying face, one regression-walk launch for all eyes and one for all
+landmark points of all faces (ops/pupil_cuda.py); the landmark anchors come
+from the eyes' medians on the card, and one download brings back every
+eye and point. Each face reports only its own points by default;
+`accumulate_json_payload` reproduces the reference CLI's cross-face
+accumulation.
+
+Jitter: `detect` draws its uniforms from a `torch.Generator` on the host
+(seed 0 when none is given) or takes them as `uniforms=(u_eyes, u_lmk)`;
+frame i of `detect_stream(frames, seed=s)` draws from a generator seeded
+with s + i.
+
+Upright only: angle > 0 raises NotImplementedError, as the face stage does
+(models/face.py). Rotated eye walks are in PupilLocalizer.run_detector.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import numpy as np
+import torch
+
+from pigo_tpu_torch.convert import PupilTensors
+from pigo_tpu_torch.models.face import (
+    FaceCascade,
+    _check_upright,
+    _Slot,
+    destride,
+)
+from pigo_tpu_torch.models.landmark import LandmarkLocalizer
+from pigo_tpu_torch.models.pupil import (
+    PupilLocalizer,
+    Puploc,
+    draw_uniforms,
+    ensemble_medians,
+    to_device,
+)
+from pigo_tpu_torch.ops import pupil_dense
+from pigo_tpu_torch.ops.cluster import cluster_detections
+from pigo_tpu_torch.utils.device import resolve_device
+
+# CLI constants (cmd/pigo/main.go:54, :360, :404)
+PERTURBS = 63
+Q_THRESH = 5.0
+MIN_EYE_FACE_SCALE = 50
+
+
+@dataclasses.dataclass(frozen=True)
+class ImageParams:
+    """Grayscale frame (reference core/pigo.go:29-34). Accepted by
+    FaceDetector.detect/detect_faces in place of (gray, rows, cols)."""
+
+    pixels: np.ndarray  # flat uint8 [rows*dim]
+    rows: int
+    cols: int
+    dim: int
+
+
+def _coerce_image(gray, rows, cols):
+    """(gray, rows, cols) or an ImageParams -> (pixels, rows, cols, dim)."""
+    if isinstance(gray, ImageParams):
+        return gray.pixels, gray.rows, gray.cols, gray.dim
+    return gray, rows, cols, None
+
+
+@dataclasses.dataclass(frozen=True)
+class CascadeParams:
+    """Detection parameters (reference core/pigo.go:16-22; CLI defaults
+    main.go:105-119)."""
+
+    min_size: int = 20
+    max_size: int = 1000
+    shift_factor: float = 0.15
+    scale_factor: float = 1.15
+
+
+@dataclasses.dataclass(frozen=True)
+class Detection:
+    """One clustered face detection (reference core/pigo.go:195-200)."""
+
+    row: int
+    col: int
+    scale: int
+    q: float
+
+
+@dataclasses.dataclass
+class FaceResult:
+    """Full per-face result: detection + eyes + landmark points."""
+
+    face: Detection
+    eyes: list[Puploc] = dataclasses.field(default_factory=list)
+    landmarks: list[Puploc] = dataclasses.field(default_factory=list)
+
+    def to_json_dict(self) -> dict:
+        """Reference JSON schema (main.go:89-100, 394-398, 446-450):
+        x = image column, y = image row; zero-valued fields are dropped to
+        match Go's `omitempty` marshaling."""
+
+        def drop_zero(d: dict) -> dict:
+            return {k: v for k, v in d.items() if v != 0}
+
+        out: dict = {
+            "face": drop_zero(
+                {
+                    "x": self.face.col - self.face.scale // 2,
+                    "y": self.face.row - self.face.scale // 2,
+                    "size": self.face.scale,
+                }
+            )
+        }
+        if self.eyes:
+            out["eyes"] = [
+                drop_zero({"x": e.col, "y": e.row, "size": int(e.scale)})
+                for e in self.eyes
+            ]
+        if self.landmarks:
+            out["landmark_points"] = [
+                drop_zero({"x": p.col, "y": p.row, "size": int(p.scale)})
+                for p in self.landmarks
+            ]
+        return out
+
+
+def accumulate_json_payload(payload: list[dict]) -> list[dict]:
+    """Reproduce the reference CLI's cross-face accumulation quirk
+    bug-for-bug: `drawFaces` allocates one eyesCoords/landmarkCoords slice
+    for the whole image and never resets them between faces
+    (cmd/pigo/main.go:363-365), and each face's detection struct snapshots
+    the grown slice (main.go:568-572), so face i's JSON carries every eye
+    and landmark point found for faces 0..i. A face with no eyes of its own
+    still reports all earlier ones."""
+    eyes: list[dict] = []
+    lms: list[dict] = []
+    out: list[dict] = []
+    for d in payload:
+        d = dict(d)
+        eyes.extend(d.pop("eyes", []))
+        lms.extend(d.pop("landmark_points", []))
+        if eyes:
+            d["eyes"] = list(eyes)
+        if lms:
+            d["landmark_points"] = list(lms)
+        out.append(d)
+    return out
+
+
+def _eye_anchor_offsets(s: int) -> tuple[int, int, int]:
+    """Reference eye-anchor offsets for face scale s, computed in float32
+    exactly like Go (cmd/pigo/main.go:417-458): `int(0.075*float32(s))`
+    multiplies in f32 (the untyped constant adopts float32), then truncates.
+    f64 would differ by one pixel at s in {360, 680, 720}."""
+    f = np.float32
+    return (int(f(0.075) * f(s)), int(f(0.175) * f(s)), int(f(0.185) * f(s)))
+
+
+def eye_anchors(faces: list[Detection]) -> np.ndarray:
+    """The reference CLI's eye anchors (row, col, scale) f32 [2F, 3] of F
+    faces, left then right eye per face (main.go:416-421, :454-458)."""
+    anchors = []
+    for d in faces:
+        o_row, o_l, o_r = _eye_anchor_offsets(d.scale)
+        s = float(d.scale) * 0.25
+        anchors += [(d.row - o_row, d.col - o_l, s),
+                    (d.row - o_row, d.col + o_r, s)]
+    return np.array(anchors, np.float32).reshape(-1, 3)
+
+
+def _attach_post(res, eyes, lmk, i, npts, perturbs):
+    """Attach face i's voted eyes and landmark points to a FaceResult,
+    applying the reference validity gates (eye coords > 0 before landmarks
+    count, cmd/pigo/main.go:422-470)."""
+    left = Puploc(row=int(eyes[0, 2 * i]), col=int(eyes[1, 2 * i]),
+                  scale=float(eyes[2, 2 * i]), perturbs=perturbs)
+    right = Puploc(row=int(eyes[0, 2 * i + 1]),
+                   col=int(eyes[1, 2 * i + 1]),
+                   scale=float(eyes[2, 2 * i + 1]), perturbs=perturbs)
+    if left.row > 0 and left.col > 0:
+        res.eyes.append(left)
+    if right.row > 0 and right.col > 0:
+        res.eyes.append(right)
+    if left.row > 0 and left.col > 0 and right.row > 0 and right.col > 0:
+        res.landmarks = [
+            p for p in (
+                Puploc(row=int(lmk[0, i, j]), col=int(lmk[1, i, j]),
+                       scale=float(lmk[2, i, j]), perturbs=perturbs)
+                for j in range(npts)
+            )
+            if p.row > 0 and p.col > 0
+        ]
+
+
+def landmark_anchors(eyes: torch.Tensor):
+    """Landmark anchors (row, col, scale) f32 [F] from the voted eyes
+    [3, 2F] (left, right per face), in f32 where the eyes live
+    (pigo_tpu/detector.py:199-207, core/flploc.go:37-43): the medians are
+    truncated like the host's Puploc(int(row), int(col)) first."""
+    f32 = pupil_dense.f32_scalar
+    ler, lec = torch.trunc(eyes[0, 0::2]), torch.trunc(eyes[1, 0::2])
+    rer, rec = torch.trunc(eyes[0, 1::2]), torch.trunc(eyes[1, 1::2])
+    d = ler - rer
+    e = lec - rec
+    dist = torch.sqrt(d * d + e * e)
+    arow = torch.trunc((ler + rer) / f32(2.0) + f32(0.25) * dist)
+    acol = torch.trunc((lec + rec) / f32(2.0) + f32(0.15) * dist)
+    return arow, acol, f32(3.0) * dist
+
+
+def fused_post(erow, ecol, escale, pixels, pupil: PupilTensors,
+               landmarks: PupilTensors | None, u_eyes, u_lmk, lmk_cids,
+               lmk_flips, *, rows: int, cols: int, dim: int) -> torch.Tensor:
+    """Eyes + landmarks for F faces, on the pixels' device, with no host
+    synchronisation: what pigo_tpu.detector._fused_post_impl computes,
+    with its uniforms passed in.
+
+    erow/ecol/escale f32 [2F] eye anchors; pixels uint8 [rows*dim];
+    u_eyes f32 [2F, P, 3]; u_lmk f32 [F*npts, P, 3]; lmk_cids int32 and
+    lmk_flips bool [F*npts]. Two pupil_walk launches: eyes, then the
+    landmarks anchored on the eyes' medians. Returns [3, 2F + F*npts] f32
+    medians (row, col, scale); with `landmarks=None` the eyes alone."""
+    f2 = erow.shape[0]
+    zeros = torch.zeros(f2, dtype=torch.int32, device=erow.device)
+    eyes = ensemble_medians(pupil, zeros, erow, ecol, escale, zeros.bool(),
+                            u_eyes, pixels, rows, cols, dim)
+    if landmarks is None:
+        return eyes
+    npts = lmk_cids.shape[0] // (f2 // 2)
+    arow, acol, ascale = landmark_anchors(eyes)
+    lmk = ensemble_medians(
+        landmarks, lmk_cids, arow.repeat_interleave(npts),
+        acol.repeat_interleave(npts), ascale.repeat_interleave(npts),
+        lmk_flips, u_lmk, pixels, rows, cols, dim)
+    return torch.cat([eyes, lmk], dim=1)
+
+
+@dataclasses.dataclass
+class _PostTicket:
+    """One dispatched post stage: the faces it serves, the [3, 2F + F*npts]
+    medians' host buffer (pinned on a card) and its event."""
+
+    eyed: list
+    npts: int
+    perturbs: int
+    out: torch.Tensor
+    event: object = None
+
+
+class FaceDetector:
+    """End-to-end detector; loads the bundled cascades by default.
+    `device=None` means the CUDA card and raises without one;
+    `device="cpu"` runs the kernels' plain PyTorch versions (tests)."""
+
+    def __init__(self, face: FaceCascade | None = None,
+                 pupil: PupilLocalizer | None = None,
+                 landmarks: LandmarkLocalizer | None = None, *,
+                 with_pupils: bool = True, with_landmarks: bool = True,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.face = face if face is not None else FaceCascade(
+            device=self.device)
+        self.pupil = pupil if pupil is not None else (
+            PupilLocalizer(device=self.device)
+            if (with_pupils or with_landmarks) else None)
+        self.landmarks = landmarks if landmarks is not None else (
+            LandmarkLocalizer(device=self.device) if with_landmarks
+            else None)
+        for part in (self.face, self.pupil, self.landmarks):
+            if part is not None and part.device != self.device:
+                raise ValueError(f"{type(part).__name__} is on "
+                                 f"{part.device}, the detector on "
+                                 f"{self.device}")
+
+    # ------------------------------------------------------- face stage
+
+    @staticmethod
+    def _frames(gray, rows, cols) -> np.ndarray | torch.Tensor:
+        """A frame (or ImageParams) -> contiguous [1, rows, cols]; a row
+        stride dim > cols is removed exactly first (models/face.destride:
+        no window or walk probe reads past cols)."""
+        pixels, rows, cols, dim = _coerce_image(gray, rows, cols)
+        if dim is not None and dim != cols:
+            pixels = destride(pixels, rows, cols, dim)
+        return FaceCascade._as_frames(pixels, rows, cols)
+
+    def _dispatch_faces(self, frames, slot: _Slot, params: CascadeParams,
+                        angle: float):
+        _check_upright(angle)
+        return self.face._dispatch(frames, slot, dict(
+            min_size=params.min_size, max_size=params.max_size,
+            shift_factor=params.shift_factor,
+            scale_factor=params.scale_factor))
+
+    def _faces(self, ticket, iou_threshold: float) -> list[Detection]:
+        """Blocking half of the face stage: hits -> clustered detections."""
+        clusters = cluster_detections(self.face._collect(ticket)[0],
+                                      iou_threshold)
+        return [Detection(row=int(r), col=int(c), scale=int(s), q=float(q))
+                for r, c, s, q in clusters]
+
+    def _results(self, ticket, iou_threshold: float) -> list[FaceResult]:
+        return [FaceResult(face=d) for d in self._faces(ticket, iou_threshold)
+                if d.q > Q_THRESH]
+
+    def detect_faces(self, gray, rows: int | None = None,
+                     cols: int | None = None,
+                     params: CascadeParams = CascadeParams(),
+                     angle: float = 0.0,
+                     iou_threshold: float = 0.15) -> list[Detection]:
+        """RunCascade + ClusterDetections (main.go:350-353)."""
+        frames = self._frames(gray, rows, cols)
+        return self._faces(self._dispatch_faces(
+            frames, self.face._single, params, angle), iou_threshold)
+
+    # ------------------------------------------------------- post stage
+
+    def _uniforms(self, f: int, perturbs: int, generator, uniforms):
+        """(u_eyes [2F, P, 3], u_lmk [F*npts, P, 3] or None) on the host."""
+        shapes = [(2 * f, perturbs, 3)]
+        if self.landmarks is not None:
+            shapes.append((f * len(self.landmarks.point_schedule), perturbs,
+                           3))
+        if uniforms is None:
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            got = [draw_uniforms(shape, generator) for shape in shapes]
+        else:
+            got = [torch.tensor(np.asarray(u, np.float32))
+                   for u in uniforms[:len(shapes)]]
+            if [tuple(u.shape) for u in got] != shapes:
+                raise ValueError(f"uniforms must be shaped {shapes}, got "
+                                 f"{[tuple(u.shape) for u in got]}")
+        return got[0], (got[1] if len(got) > 1 else None)
+
+    def _dispatch_post(self, results: list[FaceResult], face_ticket,
+                       perturbs: int, generator, uniforms):
+        """Async half: the eyes and landmark walks of every qualifying face
+        of a frame and the download of their medians, enqueued without
+        waiting for the device. The walks read the frame the face stage
+        uploaded. None when no face qualifies."""
+        eyed = [r for r in results if r.face.scale > MIN_EYE_FACE_SCALE]
+        if self.pupil is None or not eyed:
+            return None
+        f = len(eyed)
+        dev = self.device
+        frame = face_ticket.frames[0]
+        rows, cols = frame.shape
+        erow, ecol, escale = to_device(
+            eye_anchors([r.face for r in eyed]).T, dev, torch.float32)
+        u_eyes, u_lmk = self._uniforms(f, perturbs, generator, uniforms)
+        lmk = self.landmarks
+        cids = flips = None
+        if lmk is not None:
+            cids, flips = lmk.schedule_arrays(f)
+            cids = to_device(cids, dev, torch.int32)
+            flips = to_device(flips, dev, torch.bool)
+            u_lmk = to_device(u_lmk, dev, torch.float32)
+        out = fused_post(
+            erow, ecol, escale, frame.reshape(-1), self.pupil.tensors,
+            None if lmk is None else lmk.tensors,
+            to_device(u_eyes, dev, torch.float32), u_lmk, cids, flips,
+            rows=rows, cols=cols, dim=cols)
+        ticket = _PostTicket(
+            eyed=eyed, perturbs=perturbs, out=out,
+            npts=0 if lmk is None else len(lmk.point_schedule))
+        if dev.type == "cuda":
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            ticket.out = host.copy_(out, non_blocking=True)
+            ticket.event = torch.cuda.Event()
+            ticket.event.record(torch.cuda.current_stream(dev))
+        return ticket
+
+    @staticmethod
+    def _collect_post(ticket: _PostTicket | None) -> None:
+        """Blocking half: wait for the medians and attach them."""
+        if ticket is None:
+            return
+        if ticket.event is not None:
+            ticket.event.synchronize()
+        out = ticket.out.numpy()
+        f = len(ticket.eyed)
+        eyes = out[:, :2 * f]
+        lmk = out[:, 2 * f:].reshape(3, f, ticket.npts)
+        for i, res in enumerate(ticket.eyed):
+            _attach_post(res, eyes, lmk, i, ticket.npts, ticket.perturbs)
+
+    # ------------------------------------------------------- entry points
+
+    def detect(self, gray, rows: int | None = None, cols: int | None = None,
+               params: CascadeParams = CascadeParams(), angle: float = 0.0,
+               iou_threshold: float = 0.15, perturbs: int = PERTURBS,
+               generator: torch.Generator | None = None,
+               uniforms=None) -> list[FaceResult]:
+        """Full pipeline: faces, then eyes + landmarks per qualifying face.
+
+        All eye anchors of the frame are refined in one kernel walk, then
+        all landmark points of all faces in another (the reference makes
+        2 + 15 sequential RunDetector calls per face,
+        cmd/pigo/main.go:422-564). `uniforms=(u_eyes [2F, P, 3],
+        u_lmk [15F, P, 3])` replaces the generator's draws."""
+        frames = self._frames(gray, rows, cols)
+        ticket = self._dispatch_faces(frames, self.face._single, params,
+                                      angle)
+        results = self._results(ticket, iou_threshold)
+        self._collect_post(self._dispatch_post(results, ticket, perturbs,
+                                               generator, uniforms))
+        return results
+
+    def detect_stream(self, frames, params: CascadeParams = CascadeParams(),
+                      angle: float = 0.0, iou_threshold: float = 0.15,
+                      perturbs: int = PERTURBS, seed: int = 0,
+                      depth: int = 4):
+        """Streaming full pipeline over [rows, cols] uint8 frames: the face
+        stage of frame i+1 is enqueued before frame i's hits are
+        collected, and up to `depth` post stages stay in flight while the
+        host clusters later frames. Yields the per-frame list[FaceResult]
+        in input order. Frame i's results equal
+        `detect(frame_i, generator=torch.Generator().manual_seed(seed + i))`.
+        """
+        _check_upright(angle)
+        depth = max(1, int(depth))
+        # frame k's face stage reuses the staging slot of frame k - 2,
+        # which has been collected by then
+        ring = [_Slot(self.device) for _ in range(2)]
+        faceq: collections.deque = collections.deque()
+        postq: collections.deque = collections.deque()
+
+        def advance():
+            j, ticket = faceq.popleft()
+            results = self._results(ticket, iou_threshold)
+            postq.append((results, self._dispatch_post(
+                results, ticket, perturbs,
+                torch.Generator().manual_seed(seed + j), None)))
+
+        for i, frame in enumerate(frames):
+            fr = self._frames(frame, frame.shape[-2], frame.shape[-1])
+            faceq.append((i, self._dispatch_faces(fr, ring[i % 2], params,
+                                                  angle)))
+            if len(faceq) >= 2:
+                advance()
+            if len(postq) >= depth:
+                results, post = postq.popleft()
+                self._collect_post(post)
+                yield results
+        while faceq:
+            advance()
+        while postq:
+            results, post = postq.popleft()
+            self._collect_post(post)
+            yield results

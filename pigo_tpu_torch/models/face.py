@@ -105,12 +105,15 @@ class _Slot:
 
 @dataclasses.dataclass
 class _Ticket:
-    """One dispatched batch: its plan, the device scores (kept for the
-    dense re-read on overflow), the packed host buffer and its event."""
+    """One dispatched batch: its plan, the frames on the device (the
+    post stage of FaceDetector reads them), the device scores (kept for
+    the dense re-read on overflow), the packed host buffer and its
+    event."""
 
     plan: object
     n_frames: int
     cap: int
+    frames: torch.Tensor | None = None
     q: torch.Tensor | None = None
     packed: torch.Tensor | None = None
     event: object = None
@@ -198,9 +201,10 @@ class FaceCascade:
             return ticket
         staging, packed_host = slot.buffers(b, rows, cols, cap)
         f = self.tensors
+        ticket.frames = self._upload(frames, staging)
         ticket.q = face_cuda.face_cascade(
-            self._upload(frames, staging), base, scale, f.codes, f.preds,
-            f.thresh, f.num_trees)
+            ticket.frames, base, scale, f.codes, f.preds, f.thresh,
+            f.num_trees)
         packed_host.copy_(compact_hits(ticket.q, cap), non_blocking=True)
         ticket.packed = packed_host
         if self.device.type == "cuda":

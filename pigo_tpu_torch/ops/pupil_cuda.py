@@ -1,0 +1,135 @@
+"""The regression-walk kernel on the card: wrapper and launch count.
+
+`pupil_walk` is the port of pigo_tpu/ops/pupil_pallas.py::_stage_kernel
+(the kernel is csrc/pupil_walk.cu). Where the TPU path launched one kernel
+per stage over image patches and re-ran walk groups whose probes left
+their patch, here one launch runs every stage of every walker against the
+whole frame, so there is no patch, overflow flag or retry.
+
+On a CPU tensor the wrapper runs the plain version (ops/pupil_dense.py);
+on a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pigo_tpu_torch.ops import pupil_dense
+from pigo_tpu_torch.utils import build
+
+# Kernel launches made by `pupil_walk` (CUDA tensors only). Callers reset
+# it to 0 and read it to show that a run went through the kernel.
+pupil_walk_launches = 0
+
+# One warp per walker, one lane per tree (csrc/pupil_walk.cu).
+MAX_TREES = 32
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
+        ctypes.c_float
+    lib.pigo_pupil_walk.restype = i
+    lib.pigo_pupil_walk.argtypes = [
+        vp, i, i, i, vp, vp, i, i, i, i, f, i, f, f, vp, vp, vp, vp, vp,
+        ll, vp, vp,
+    ]
+    lib.pigo_cuda_error_string.restype = ctypes.c_char_p
+    lib.pigo_cuda_error_string.argtypes = [i]
+
+
+def load_kernel() -> ctypes.CDLL:
+    """Build (at first use) and bind the kernel library."""
+    return build.load("pupil_walk", _bind)
+
+
+def check_cascade_ids(casc_id: torch.Tensor, nc: int) -> None:
+    """Raise ValueError for a host (CPU) id outside [0, nc). Ids already on
+    the card are checked by the kernel, which faults the launch."""
+    if casc_id.device.type == "cpu" and casc_id.numel() and not (
+            0 <= int(casc_id.min()) and int(casc_id.max()) < nc):
+        raise ValueError(f"cascade ids outside [0, {nc})")
+
+
+def _check(codes, preds, casc_id, r0, c0, s0, col_sign, pixels, nrows,
+           ncols, dim, angle_idx):
+    if codes.dtype != torch.int8 or codes.dim() != 5 or codes.shape[4] != 4:
+        raise ValueError(f"codes must be int8 [NC, S, T, L, 4], got "
+                         f"{codes.dtype} {tuple(codes.shape)}")
+    nc, stages, trees, leaves, _ = codes.shape
+    if (preds.dtype != torch.float32
+            or tuple(preds.shape) != (nc, stages, trees, leaves, 2)
+            or leaves < 2 or leaves & (leaves - 1)):
+        raise ValueError(
+            f"preds must be f32 [{nc}, {stages}, {trees}, {leaves}, 2] with "
+            f"L a power of two, got {preds.dtype} {tuple(preds.shape)}")
+    if not 1 <= trees <= MAX_TREES:
+        raise ValueError(f"{trees} trees a stage: the kernel takes 1 to "
+                         f"{MAX_TREES} (one lane each)")
+    n = r0.shape[0] if r0.dim() == 1 else -1
+    for name, t, dt in (("casc_id", casc_id, torch.int32),
+                        ("r0", r0, torch.float32), ("c0", c0, torch.float32),
+                        ("s0", s0, torch.float32),
+                        ("col_sign", col_sign, torch.int32)):
+        if t.dtype != dt or t.dim() != 1 or t.shape[0] != n:
+            raise ValueError(f"{name} must be {dt} [B] like r0, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if (pixels.dtype != torch.uint8 or not 1 <= ncols <= dim
+            or nrows < 1 or pixels.numel() < (nrows - 1) * dim + ncols):
+        raise ValueError(
+            f"pixels must be uint8 holding {nrows} rows of stride {dim} >= "
+            f"{ncols} columns, got {pixels.dtype} {pixels.numel()} values")
+    if not 0 <= angle_idx < len(pupil_dense.QSIN_TABLE):
+        raise ValueError(f"angle_idx {angle_idx} outside the rotation table")
+    check_cascade_ids(casc_id, nc)
+    tensors = (codes, preds, casc_id, r0, c0, s0, col_sign, pixels)
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {devs}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("pupil_walk needs contiguous tensors")
+
+
+def pupil_walk(codes, preds, casc_id, r0, c0, s0, col_sign, pixels, *,
+               nrows, ncols, dim, scale_mult, rotated=False, angle_idx=0):
+    """Refined (r, c, s) f32 [B] each for B walkers (semantics and
+    arguments as ops/pupil_dense.walk). A casc_id outside [0, NC) raises
+    ValueError on a CPU tensor; on the card the kernel traps before it
+    reads a table, which fails the launch's stream (the next
+    synchronisation raises) as PyTorch's own device-side index checks do."""
+    global pupil_walk_launches
+    _check(codes, preds, casc_id, r0, c0, s0, col_sign, pixels, nrows, ncols,
+           dim, angle_idx)
+    dev = r0.device
+    if dev.type == "cpu":
+        return pupil_dense.walk(
+            codes, preds, casc_id, r0, c0, s0, col_sign, pixels,
+            nrows=nrows, ncols=ncols, dim=dim, scale_mult=scale_mult,
+            rotated=rotated, angle_idx=angle_idx)
+    if dev.type != "cuda":
+        raise ValueError(f"pupil_walk runs on cuda or cpu, not {dev}")
+    if codes.data_ptr() % 4 or preds.data_ptr() % 8:
+        raise ValueError("codes must be 4-byte aligned (read as char4) and "
+                         "preds 8-byte aligned (read as float2)")
+    n = r0.shape[0]
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out[0], out[1], out[2]
+    nc, stages, trees, leaves, _ = codes.shape
+    lib = load_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pigo_pupil_walk(
+            pixels.data_ptr(), nrows, ncols, dim, codes.data_ptr(),
+            preds.data_ptr(), nc, stages, trees, leaves.bit_length() - 1,
+            scale_mult, int(rotated),
+            float(pupil_dense.QSIN_TABLE[angle_idx]),
+            float(pupil_dense.QCOS_TABLE[angle_idx]), casc_id.data_ptr(),
+            col_sign.data_ptr(), r0.data_ptr(), c0.data_ptr(), s0.data_ptr(),
+            n, out.data_ptr(), stream)
+    if rc != 0:
+        msg = lib.pigo_cuda_error_string(rc).decode()
+        raise RuntimeError(f"pupil_walk launch failed: {msg} ({rc})")
+    pupil_walk_launches += 1
+    return out[0], out[1], out[2]

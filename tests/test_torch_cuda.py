@@ -12,15 +12,20 @@ chip_smoke.py runs the same checks at the main path's full shapes.
 
 import json
 import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
 import torch
 
-from pigo_tpu_torch import FaceCascade
+from pigo_tpu_torch import FaceCascade, FaceDetector
 from pigo_tpu_torch.cascade.assets import load_facefinder
 from pigo_tpu_torch.convert import face_forest_from_numpy
-from pigo_tpu_torch.ops import face_cuda, face_dense, windows
+from pigo_tpu_torch.detector import CascadeParams
+from pigo_tpu_torch.ops import (face_cuda, face_dense, pupil_cuda,
+                                pupil_dense, windows)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADLINE = dict(min_size=20, max_size=1000, shift_factor=0.1,
@@ -89,3 +94,106 @@ def test_face_cascade_on_card_matches_golden(cuda_device, gray):
     assert all(np.array_equal(s, w) for s, w in zip(streamed, want))
     assert all(np.array_equal(b, w) for b, w in zip(batch, want))
     assert face_cuda.face_cascade_launches - before == 2 + 4 + 4 + 1
+
+
+def test_pupil_walk_matches_plain_on_card(cuda_device, gray):
+    """The walk kernel is bit-equal to the plain walk on the card on
+    (r, c, s): eyes, rotated eyes and the nine landmark cascades with
+    flips, from seeded starts over the sample frame."""
+    det = FaceDetector(device=cuda_device)
+    pix = torch.from_numpy(gray.reshape(-1)).to(cuda_device)
+    rng = np.random.default_rng(0)
+    n = 630
+    for tensors, angle_idx in ((det.pupil.tensors, 0),
+                               (det.pupil.tensors, 8),
+                               (det.landmarks.tensors, 0)):
+        starts = [torch.from_numpy(a).to(cuda_device) for a in (
+            rng.integers(0, tensors.codes.shape[0], n).astype(np.int32),
+            rng.uniform(0, 400, n).astype(np.float32),
+            rng.uniform(0, 320, n).astype(np.float32),
+            rng.uniform(8, 300, n).astype(np.float32),
+            np.where(rng.random(n) < 0.5, -1, 1).astype(np.int32))]
+        kw = dict(nrows=400, ncols=320, dim=320,
+                  scale_mult=tensors.scale_mult, rotated=angle_idx > 0,
+                  angle_idx=angle_idx)
+        before = pupil_cuda.pupil_walk_launches
+        got = pupil_cuda.pupil_walk(tensors.codes, tensors.preds, *starts,
+                                    pix, **kw)
+        assert pupil_cuda.pupil_walk_launches == before + 1
+        want = pupil_dense.walk(tensors.codes, tensors.preds, *starts, pix,
+                                **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("casc_id,runs", [(8, True), (-1, False),
+                                          (9, False)])
+def test_pupil_walk_faults_on_cascade_id_outside_forest(cuda_device, casc_id,
+                                                        runs):
+    """On the card a cascade id outside [0, NC) (NC = 9 landmark cascades)
+    faults the walk's launch before any table read, so the next
+    synchronisation raises; a valid id runs. In a child process, since the
+    fault ends that process's CUDA context."""
+    code = textwrap.dedent(f"""
+        import torch
+        from pigo_tpu_torch.models.landmark import LandmarkLocalizer
+        from pigo_tpu_torch.ops import pupil_cuda
+
+        t = LandmarkLocalizer().tensors
+        ids = torch.zeros(64, dtype=torch.int32, device="cuda")
+        ids[32] = {casc_id}
+        start = torch.full((64,), 100.0, device="cuda")
+        pix = torch.zeros(400 * 320, dtype=torch.uint8, device="cuda")
+        pupil_cuda.pupil_walk(t.codes, t.preds, ids, start, start, start / 4,
+                              torch.ones_like(ids), pix, nrows=400,
+                              ncols=320, dim=320, scale_mult=t.scale_mult)
+        torch.cuda.synchronize()
+        print("synchronised", flush=True)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    if runs:
+        assert proc.returncode == 0, proc.stderr
+        assert "synchronised" in proc.stdout
+    else:
+        assert proc.returncode != 0
+        assert "synchronised" not in proc.stdout
+        assert "error" in proc.stderr.lower(), proc.stderr
+
+
+def test_face_detector_on_card_matches_golden(cuda_device, gray):
+    """FaceDetector() on the card at the golden sample's configuration and
+    frozen uniforms: the face, eyes and 15 points equal
+    tests/golden/sample.json (eye scales within 1e-5 relative, as
+    tests/test_golden.py allows), in one face_cascade launch and two
+    pupil_walk launches."""
+    import zlib
+
+    with open(os.path.join(ROOT, "tests", "golden", "sample.json")) as fh:
+        golden = json.load(fh)
+
+    def uniforms(tag, k):
+        rng = np.random.default_rng(zlib.crc32(tag.encode()))
+        return rng.random((k, 63, 3), dtype=np.float32)
+
+    c = golden["config"]
+    det = FaceDetector()
+    assert det.device.type == "cuda"
+    before = (face_cuda.face_cascade_launches,
+              pupil_cuda.pupil_walk_launches)
+    res = det.detect(gray, 400, 320,
+                     CascadeParams(c["min_size"], c["max_size"],
+                                   c["shift_factor"], c["scale_factor"]),
+                     iou_threshold=c["iou"],
+                     uniforms=(uniforms("sample:face0:eyes", 2),
+                               uniforms("sample:face0:lmk", 15)))
+    assert (face_cuda.face_cascade_launches - before[0],
+            pupil_cuda.pupil_walk_launches - before[1]) == (1, 2)
+    [want] = golden["faces"]
+    [got] = res
+    assert [got.face.row, got.face.col, got.face.scale] == want["face"][:3]
+    for e, w in zip(got.eyes, want["eyes"]):
+        assert [e.row, e.col] == w[:2]
+        assert abs(e.scale - w[2]) <= 1e-5 * e.scale
+    assert [[p.row, p.col] for p in got.landmarks] == [
+        w[2:4] for w in want["landmarks"]]

@@ -265,6 +265,9 @@ import pigo_tpu_torch
 import pigo_tpu_torch.cascade, pigo_tpu_torch.convert, pigo_tpu_torch.io.image
 import pigo_tpu_torch.ops.face_cuda, pigo_tpu_torch.utils.build
 import pigo_tpu_torch.utils.profiling
+import pigo_tpu_torch.models.pupil, pigo_tpu_torch.models.landmark
+import pigo_tpu_torch.detector, pigo_tpu_torch.ops.pupil_dense
+import pigo_tpu_torch.ops.pupil_cuda
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "pigo_tpu" or m.startswith("pigo_tpu."))
