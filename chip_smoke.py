@@ -9,28 +9,36 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 Phases (one result line each, then the kernels line, the card line, and
 the final status line):
   1. build  — compile every kernel of the port from csrc/, one nvcc per
-     source, all started together; print the compiler's register and
+     library, all started together; print the compiler's register and
      spill report;
   2. kernel — each kernel against its plain PyTorch version on the card,
      bit for bit, at the main paths' shapes, with the kernel's and the
-     plain version's times and its bound: the face cascade over the
-     400x320 headline pyramid and a 1080x1920 tiling of it (plus its time
-     over the surviving windows alone, the dependent load chain that
-     bounds it); the pupil/landmark walk for the eyes, the 15 landmark
-     points and rotated eyes of the faces found in the sample frame and
-     in the 1080p tiling, plus seeded random starts;
-  3. main path — FaceCascade on the card: detections and clusters against
-     tests/golden/sample_dense.json, stream_hits and sparse_hits_batch
-     parity, the 1080p stream, one kernel launch per frame, and the
-     streamed ms/frame;
+     plain version's times and its bound (from the pixels, code words and
+     leaves this run's windows read): the face cascade over the
+     400x320 headline pyramid and a 1080x1920 tiling of it, upright and
+     rotated (plus its time over the surviving windows alone, the
+     dependent load chain that bounds it); the tree-prefix kernel over
+     the tail scales of both pyramids, upright and rotated; the exact
+     finish of the marked windows against the full-forest cascade; the
+     pupil/landmark walk for the eyes, the 15 landmark points and rotated
+     eyes of the faces found in the sample frame and in the 1080p tiling,
+     plus seeded random starts;
+  3. main path — FaceCascade on the card in each mode (default,
+     prefix=True, tree_cap=32, both): detections and clusters against
+     tests/golden/sample_dense.json and tests/golden/sample.json, upright
+     and at both frozen angles; stream_hits and sparse_hits_batch parity;
+     each mode's streams equal the default mode's; the launches per frame
+     of each mode; detect_sweep against per-angle run_cascade; the
+     streamed ms/frame of each mode and at angle 0.07;
   4. detector — FaceDetector on the card: faces, eyes and landmark points
      against tests/golden/sample.json at its frozen uniforms, detect equal
-     to the CPU run, detect_stream equal to per-frame detect over the
-     sample and 1080p streams, one face_cascade and two pupil_walk
-     launches per frame with a qualifying face, the streamed ms/frame, a
-     serial face / cluster / post breakdown, and a torch.profiler pass
-     for the device's busy time and idle share;
-  5. kernels — one JSON line for every ported kernel.
+     to the CPU run (upright and at angle 0.07), detect_stream equal to
+     per-frame detect over the sample and 1080p streams, one face_cascade
+     and two pupil_walk launches per frame with a qualifying face, the
+     streamed ms/frame, a serial face / cluster / post breakdown, and a
+     torch.profiler pass for the device's busy time and idle share;
+  5. kernels — one JSON line for every ported kernel, after the seconds
+     each phase took.
 Any failed check exits non-zero before the status line.
 """
 
@@ -52,7 +60,19 @@ HEADLINE = dict(min_size=20, max_size=1000, shift_factor=0.1,
 HD = dict(min_size=40, max_size=1080, shift_factor=0.1, scale_factor=1.1)
 STREAM_FRAMES, STREAM_DEPTH = 64, 8
 HD_FRAMES, HD_DEPTH = 24, 6
-KERNELS = ("face_cascade", "pupil_walk")
+# kernel libraries: face_cascade holds face_cascade, face_finish and
+# face_prefix (csrc/face_cascade.cu with csrc/face_prefix.cu)
+LIBRARIES = ("face_cascade", "pupil_walk")
+ROT_ANGLE = 0.07  # the golden corpus's first frozen rotation
+# FaceCascade modes of the main path: name -> constructor arguments, and
+# the (face_cascade, face_prefix, face_finish) launches each makes per
+# frame (or batch) on a pyramid with dense and tail scales
+MODES = {
+    "default": ({}, (1, 0, 0)),
+    "prefix": ({"prefix": True}, (1, 1, 1)),
+    "tree_cap": ({"tree_cap": 32}, (1, 0, 1)),
+    "prefix_tree_cap": ({"prefix": True, "tree_cap": 32}, (1, 1, 1)),
+}
 # FaceDetector: the golden sample's configuration (tests/golden/sample.json
 # holds its frozen faces, eyes and points) and the 1080p tiling's.
 GOLDEN_TAG = "sample"
@@ -110,11 +130,42 @@ def cuda_ms(fn, reps: int, queue_ahead: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
+def plain_run(fn):
+    """One call of a plain version, timed with CUDA events (a plain
+    version is no yardstick of speed, and the comparisons before have
+    warmed it up): (ms, result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
 def golden_uniforms(tag: str, n: int, perturbs: int = 63) -> np.ndarray:
     """The golden corpus's jitter uniforms [n, perturbs, 3] f32 for a tag
     (a copy of pigo_tpu/tools/make_golden.py:111-114)."""
     rng = np.random.default_rng(zlib.crc32(tag.encode()))
     return rng.random((n, perturbs, 3), dtype=np.float32)
+
+
+def face_counts():
+    """The three face kernels' launch counts."""
+    from pigo_tpu_torch.ops import face_cuda
+
+    return (face_cuda.face_cascade_launches, face_cuda.face_prefix_launches,
+            face_cuda.face_finish_launches)
+
+
+def reset_face_counts() -> None:
+    from pigo_tpu_torch.ops import face_cuda
+
+    face_cuda.face_cascade_launches = face_cuda.face_prefix_launches = 0
+    face_cuda.face_finish_launches = 0
 
 
 def phase_build() -> None:
@@ -127,28 +178,79 @@ def phase_build() -> None:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        seconds = dict(zip(KERNELS, pool.map(timed, KERNELS)))
+    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        seconds = dict(zip(LIBRARIES, pool.map(timed, LIBRARIES)))
     face_cuda.load_kernel()
     pupil_cuda.load_kernel()
-    for name in KERNELS:
+    for name in LIBRARIES:
         report = [ln.strip() for ln in build.ptxas_report(name).splitlines()
                   if "registers" in ln or "spill" in ln]
-        emit("build", kernel=name, seconds=seconds[name], ptxas=report)
+        emit("build", library=name, seconds=seconds[name], ptxas=report)
     emit("build", all_seconds=time.perf_counter() - t0)
 
 
 def phase_kernel(gray, hd, forest, card) -> dict:
-    """Kernel vs plain version, bitwise, at both main-path shapes."""
+    """The three face kernels against their plain versions, bitwise, at
+    both main-path shapes, over 5 frames (the real one and 4 seeded random
+    ones): the cascade upright at the full forest and at 32 trees and
+    rotated at the full forest; the prefix kernel over the tail scales,
+    upright and rotated; the finish of the prefix marks against its plain
+    version and against the full-forest cascade (on every mark, nothing
+    else touched), and of the 32-tree marks against the cascade. Then
+    times and bounds on the real frame alone, as the main path runs it."""
     import torch
 
+    from pigo_tpu_torch.models.face import angle_index
     from pigo_tpu_torch.ops import face_cuda, face_dense
     from pigo_tpu_torch.ops.windows import build_window_plan
 
     dev = forest.codes.device
     rng = np.random.default_rng(SEED)
     f = forest
-    stats = {"max_abs_err": 0.0, "shapes": {}}
+    tables = (f.codes, f.preds, f.thresh)
+    t_num = f.preds.shape[0]
+    mark = face_dense.PREFIX_MARK
+    rot = angle_index(ROT_ANGLE)
+    stats = {"max_abs_err": dict.fromkeys(
+        ("face_cascade", "face_prefix", "face_finish"), 0.0), "shapes": {}}
+
+    def compare(kernel, name, got, want, what):
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        stats["max_abs_err"][kernel] = max(stats["max_abs_err"][kernel], err)
+        equal = bool(torch.equal(got, want))
+        emit("kernel", kernel=kernel, shape=name, against=what,
+             frames=int(got.shape[0]), windows=int(got.shape[1]),
+             bitwise_equal=equal, max_abs_err=err)
+        check(equal, f"{kernel} != {what} at {name}")
+
+    def launched(counter, fn):
+        before = getattr(face_cuda, counter)
+        out = fn()
+        n = getattr(face_cuda, counter) - before
+        check(n == 1, f"{n} {counter} for one call")
+        return out
+
+    def plain_with_work(fn):
+        """A plain version's time (one untracked call), its result, and the
+        work its data took, counted in a second, tracked call."""
+        ms, (out, _) = plain_run(lambda: fn(False))
+        return ms, out, fn(True)[1]
+
+    def bound(work, out_bytes, n_ops):
+        """The bound from the bytes this run's data needs (the distinct
+        pixels, 1 B, code words, 4 B, and leaves, 4 B, its windows read, the
+        thresholds, 4 B, of the trees evaluated, and `out_bytes` of scores
+        moved) and its f32 operations."""
+        n_bytes = (work["pixels"] + 4 * work["code_words"]
+                   + 4 * work["leaves"] + 4 * work["trees"] + out_bytes)
+        bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = n_ops / PEAK_F32_OPS_PER_S * 1e3
+        return dict(bytes=n_bytes, f32_ops=n_ops, pixels=work["pixels"],
+                    code_words=work["code_words"], leaves=work["leaves"],
+                    bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
     for name, frame, cfg in (("headline", gray, HEADLINE), ("hd1080", hd, HD)):
         rows, cols = frame.shape
         plan = build_window_plan(rows, cols, **cfg)
@@ -157,57 +259,124 @@ def phase_kernel(gray, hd, forest, card) -> dict:
             rng.integers(0, 256, (rows, cols), dtype=np.uint8)
             for _ in range(4)])
         ft = torch.from_numpy(frames).to(dev)
-        for t_limit in (f.num_trees, 32):
-            before = face_cuda.face_cascade_launches
-            qk = face_cuda.face_cascade(ft, base, scale, f.codes, f.preds,
-                                        f.thresh, t_limit)
-            launches = face_cuda.face_cascade_launches - before
-            qp = face_dense.classify_windows(ft, base, scale, f.codes,
-                                             f.preds, f.thresh, t_limit)
-            torch.cuda.synchronize()
-            err = float((qk.double() - qp.double()).abs().max())
-            stats["max_abs_err"] = max(stats["max_abs_err"], err)
-            emit("kernel", shape=name, t_limit=t_limit,
-                 frames=int(frames.shape[0]), windows=plan.num_windows,
-                 launches=launches, bitwise_equal=bool(torch.equal(qk, qp)),
-                 max_abs_err=err)
-            check(launches == 1, f"{launches} launches for one batch")
-            check(torch.equal(qk, qp),
-                  f"face_cascade != plain at {name}, t_limit {t_limit}")
+        full = {}
+        for a, t_limit in ((0, t_num), (0, 32), (rot, t_num)):
+            qk = launched("face_cascade_launches",
+                          lambda: face_cuda.face_cascade(
+                              ft, base, scale, *tables, t_limit, angle_idx=a))
+            compare("face_cascade", name, qk, face_dense.classify_windows(
+                ft, base, scale, *tables, t_limit, angle_idx=a),
+                f"classify_windows, t_limit {t_limit}, angle_idx {a}")
+            if t_limit == t_num:
+                full[a] = qk
+            else:
+                capped = qk
+        fin = launched("face_finish_launches",
+                       lambda: face_cuda.face_finish(
+                           ft, base, scale, *tables, capped.clone()))
+        compare("face_finish", name, fin, full[0],
+                "face_cascade at the full forest (32-tree marks)")
+        routed = face_cuda.route_plan(plan, t_num, prefix=True)
+        [seg] = [sg for sg in routed.segments if sg.prefix]
+        pb, ps = base[seg.lo:seg.hi], scale[seg.lo:seg.hi]
+        for a in (0, rot):
+            qb = launched("face_prefix_launches",
+                          lambda: face_cuda.face_prefix(
+                              ft, pb, ps, *tables, seg.t_limit, angle_idx=a))
+            compare("face_prefix", name, qb, face_dense.classify_windows(
+                ft, pb, ps, *tables, seg.t_limit, angle_idx=a),
+                f"classify_windows, t_limit {seg.t_limit}, angle_idx {a}")
+            fin = launched("face_finish_launches",
+                           lambda: face_cuda.face_finish(
+                               ft, pb, ps, *tables, qb.clone(), angle_idx=a))
+            compare("face_finish", name, fin, face_dense.finish_marked(
+                ft, pb, ps, *tables, qb.clone(), angle_idx=a),
+                f"finish_marked of the prefix marks, angle_idx {a}")
+            compare("face_finish", name, fin, torch.where(
+                qb == mark, full[a][:, seg.lo:seg.hi], qb),
+                "face_cascade at the full forest on the prefix marks, "
+                f"untouched elsewhere, angle_idx {a}")
 
         # Times on the first (real) frame alone, as the main path runs it.
+        # Each plain version runs once, timed, then once more to count its
+        # work.
         one = ft[:1].contiguous()
-        args = (one, base, scale, f.codes, f.preds, f.thresh, f.num_trees)
+        args = (one, base, scale, *tables, t_num)
         ms = cuda_ms(lambda: face_cuda.face_cascade(*args), 50, True)
-        plain_ms = cuda_ms(lambda: face_dense.classify_windows(*args), 3)
-        q, evals = face_dense.cascade_with_work(*args)
+        plain_ms, q, work = plain_with_work(
+            lambda track: face_dense.cascade_with_work(*args, track=track))
+        evals = work["evaluations"]
         alive = torch.nonzero(q[0] > 0).flatten()
         survivors = int(alive.numel())
         # The same launch over the survivors alone: each walks all T trees,
         # so this times the dependent load chain that bounds the kernel.
         sub = (one, base[alive].contiguous(), scale[alive].contiguous(),
-               f.codes, f.preds, f.thresh, f.num_trees)
+               *tables, t_num)
         survivors_ms = cuda_ms(lambda: face_cuda.face_cascade(*sub), 50,
                                True)
         w = plan.num_windows
-        # Bytes the function must move: the frame, the forest and the f32
-        # scores. The plan's window tables (8 B a window) are not counted:
+        # Bytes the function must move (`bound`) with the f32 scores
+        # written. The plan's window tables (8 B a window) are not counted:
         # they follow from the geometry and could be derived in the kernel.
-        n_bytes = (rows * cols + f.codes.numel() + 4 * f.preds.numel()
-                   + 4 * f.thresh.numel() + 4 * w)
         # f32 work: one add and one compare per tree evaluation, one
         # subtract per survivor (integer address math is not counted).
-        n_ops = 2 * evals + survivors
-        bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-        ops_ms = n_ops / PEAK_F32_OPS_PER_S * 1e3
         shape = dict(
             rows=rows, cols=cols, windows=w, scales=len(plan.scales),
-            tree_evaluations=evals, survivors=survivors, bytes=n_bytes,
-            plan_table_bytes=8 * w, f32_ops=n_ops, ms=ms, plain_ms=plain_ms,
+            tree_evaluations=evals, survivors=survivors,
+            plan_table_bytes=8 * w, ms=ms, plain_ms=plain_ms,
             survivors_only_ms=survivors_ms,
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            card=card)
+            **bound(work, 4 * w, 2 * evals + survivors), card=card)
+        rot_plain_ms, q, work = plain_with_work(
+            lambda track: face_dense.cascade_with_work(
+                *args, angle_idx=rot, track=track))
+        rot_evals = work["evaluations"]
+        shape["rotated"] = dict(
+            angle=ROT_ANGLE,
+            ms=cuda_ms(lambda: face_cuda.face_cascade(*args, angle_idx=rot),
+                       50, True),
+            plain_ms=rot_plain_ms, tree_evaluations=rot_evals,
+            survivors=int((q > 0).sum()),
+            **bound(work, 4 * w, 2 * rot_evals + int((q > 0).sum())))
+
+        # The prefix kernel over the tail scales, and the finish of its
+        # marks (timed as copy + finish less the copy alone: the finish
+        # overwrites the marks it is given).
+        wb = seg.hi - seg.lo
+        bargs = (one, pb, ps, *tables, seg.t_limit)
+        shape["prefix"] = {"scales": int(routed.prefix.sum()), "windows": wb,
+                           "t_limit": seg.t_limit}
+        shape["finish"] = {}
+        for label, a in (("upright", 0), ("rotated", rot)):
+            b_plain_ms, qm, work = plain_with_work(
+                lambda track: face_dense.cascade_with_work(
+                    *bargs, angle_idx=a, track=track))
+            b_evals = work["evaluations"]
+            marks = int((qm == mark).sum())
+            shape["prefix"][label] = dict(
+                angle_idx=a,
+                ms=cuda_ms(lambda: face_cuda.face_prefix(
+                    *bargs, angle_idx=a), 50, True),
+                plain_ms=b_plain_ms, tree_evaluations=b_evals,
+                survivors=marks,
+                # what the windows read, and 4 B of score a window
+                **bound(work, 4 * wb, 2 * b_evals))
+            work = qm.clone()
+            copy_ms = cuda_ms(lambda: work.copy_(qm), 50, True)
+            fin_ms = cuda_ms(lambda: face_cuda.face_finish(
+                one, pb, ps, *tables, work.copy_(qm), angle_idx=a), 50,
+                True) - copy_ms
+            f_plain_ms, _, work = plain_with_work(
+                lambda track: face_dense.finish_with_work(
+                    one, pb, ps, *tables, qm.clone(), angle_idx=a,
+                    track=track))
+            f_evals = work["evaluations"]
+            shape["finish"][label] = dict(
+                angle_idx=a, windows=wb, marks=marks, ms=fin_ms,
+                copy_ms=copy_ms, plain_ms=f_plain_ms,
+                tree_evaluations=f_evals,
+                # what the marks read, the range's scores read and the
+                # marks' scores written
+                **bound(work, 4 * wb + 4 * marks, 2 * f_evals + marks))
         stats["shapes"][name] = shape
         emit("kernel_time", shape=name, **shape)
     return stats
@@ -343,85 +512,141 @@ def phase_pupil_kernel(frames, det, card) -> dict:
     return stats
 
 
-def phase_main_path(gray, hd, golden, card) -> dict:
-    """FaceCascade on the card through its user entry points."""
+def _cfg(golden) -> dict:
+    c = golden["config"]
+    return dict(min_size=c["min_size"], max_size=c["max_size"],
+                shift_factor=c["shift_factor"], scale_factor=c["scale_factor"])
+
+
+def phase_main_path(gray, hd, goldens, card) -> dict:
+    """FaceCascade on the card through its user entry points, in each mode
+    of MODES. Each mode's counted run: the golden detections (upright and
+    at both frozen angles) and clusters of every tag in `goldens`, 8
+    single frames, the headline stream, a batch, the 1080p stream, a
+    rotated headline stream and a 3-angle detect_sweep; every call has
+    dense and tail scales, so the launches are the mode's per-frame counts
+    times the calls. Then the streamed ms/frame of each mode, and at angle
+    0.07."""
     from pigo_tpu_torch import FaceCascade, cluster_detections
-    from pigo_tpu_torch.ops import face_cuda
     from pigo_tpu_torch.utils.profiling import PipelineStats
 
-    fc = FaceCascade()
     rows, cols = gray.shape
-    hrows, hcols = hd.shape
     frames = [np.roll(gray, i % 8, axis=1) for i in range(STREAM_FRAMES)]
     hdf = [np.roll(hd, i % 8, axis=1) for i in range(HD_FRAMES)]
-    want = np.asarray(golden["detections"], np.float64).reshape(-1, 4)
-    want_cl = np.asarray(golden["clusters"], np.float64).reshape(-1, 4)
-    iou = golden["config"]["iou"]
+    sweep_angles = (0.0, ROT_ANGLE, 0.125)
+    sweep_cfg = _cfg(goldens["sample"])
+    cascades = {mode: FaceCascade(**kw) for mode, (kw, _) in MODES.items()}
+    ref = {}
+    launches = [0, 0, 0]
+    summary = {}
+    for mode, fc in cascades.items():
+        reset_face_counts()
+        calls = 0
+        for tag, golden in goldens.items():
+            cfg = _cfg(golden)
+            for angle, want in [(0.0, golden["detections"])] + [
+                    (r["angle"], r["detections"])
+                    for r in golden["rotations"]]:
+                dets = fc.run_cascade(gray, rows, cols, angle=angle, **cfg)
+                want = np.asarray(want, np.float64).reshape(-1, 4)
+                check(dets.shape == want.shape and np.array_equal(dets, want),
+                      f"{mode}: {tag} detections at angle {angle} "
+                      f"{dets.shape} != golden {want.shape}")
+            clusters = fc.detect(gray, rows, cols,
+                                 iou_threshold=golden["config"]["iou"], **cfg)
+            check(np.array_equal(clusters, np.asarray(
+                golden["clusters"], np.float64).reshape(-1, 4)),
+                f"{mode}: {tag} clusters != golden")
+            calls += len(golden["rotations"]) + 2
+        wants = [fc.run_cascade(fr, rows, cols, **HEADLINE)
+                 for fr in frames[:8]]
+        outs = list(fc.stream_hits(frames, depth=STREAM_DEPTH, **HEADLINE))
+        batch = fc.sparse_hits_batch(np.stack(frames[:8]), **HEADLINE)
+        hd_outs = list(fc.stream_hits(hdf, depth=HD_DEPTH, **HD))
+        rot_outs = list(fc.stream_hits(frames[:8], depth=STREAM_DEPTH,
+                                       angle=ROT_ANGLE, **HEADLINE))
+        swept = fc.detect_sweep(gray, rows, cols, sweep_angles, **sweep_cfg)
+        counts = face_counts()
+        calls += 8 + STREAM_FRAMES + 1 + HD_FRAMES + 8 + len(sweep_angles)
+        expected = tuple(calls * k for k in MODES[mode][1])
 
-    face_cuda.face_cascade_launches = 0
-    dets = fc.run_cascade(gray, rows, cols, **HEADLINE)
-    clusters = fc.detect(gray, rows, cols, iou_threshold=iou, **HEADLINE)
-    wants = [fc.run_cascade(fr, rows, cols, **HEADLINE) for fr in frames[:8]]
-    outs = list(fc.stream_hits(frames, depth=STREAM_DEPTH, **HEADLINE))
-    batch = fc.sparse_hits_batch(np.stack(frames[:8]), **HEADLINE)
-    hd_outs = list(fc.stream_hits(hdf, depth=HD_DEPTH, **HD))
-    launches = face_cuda.face_cascade_launches
-    # one launch per single-frame call and per streamed frame, one per batch
-    expected = 2 + 8 + STREAM_FRAMES + 1 + HD_FRAMES
-
-    check(dets.shape == want.shape and np.array_equal(dets, want),
-          f"headline detections {dets.shape} != golden {want.shape}")
-    check(clusters.shape == want_cl.shape
-          and np.array_equal(clusters, want_cl), "clusters != golden")
-    check(len(outs) == STREAM_FRAMES and all(
-        np.array_equal(o, wants[i % 8]) for i, o in enumerate(outs)),
-        "stream_hits != run_cascade")
-    check(len(batch) == 8 and all(
-        np.array_equal(b, w) for b, w in zip(batch, wants)),
-        "sparse_hits_batch != run_cascade")
-    check(len(hd_outs) == HD_FRAMES and all(o.shape[0] >= 1 for o in hd_outs),
-          "1080p stream lost the faces")
-    check(launches == expected,
-          f"{launches} kernel launches, expected {expected}")
-    emit("main_path", detections=int(dets.shape[0]),
-         clusters=int(clusters.shape[0]), golden_detections_equal=True,
-         golden_clusters_equal=True, stream_frames=len(outs),
-         stream_equal=True, batch_frames=len(batch), batch_equal=True,
-         hd_frames=len(hd_outs),
-         hd_min_hits=int(min(o.shape[0] for o in hd_outs)),
-         face_cascade_launches=launches, expected_launches=expected)
+        check(len(outs) == STREAM_FRAMES and all(
+            np.array_equal(o, wants[i % 8]) for i, o in enumerate(outs)),
+            f"{mode}: stream_hits != run_cascade")
+        check(len(batch) == 8 and all(
+            np.array_equal(b, w) for b, w in zip(batch, wants)),
+            f"{mode}: sparse_hits_batch != run_cascade")
+        check(len(hd_outs) == HD_FRAMES
+              and all(o.shape[0] >= 1 for o in hd_outs),
+              f"{mode}: the 1080p stream lost the faces")
+        per_angle = np.concatenate([
+            fc.run_cascade(gray, rows, cols, angle=a, **sweep_cfg)
+            for a in sweep_angles])
+        check(np.array_equal(swept, cluster_detections(per_angle, 0.01)),
+              f"{mode}: detect_sweep != per-angle run_cascade + clustering")
+        streams = {"headline": outs, "hd1080": hd_outs, "rotated": rot_outs}
+        if mode == "default":
+            ref = streams
+        for k, got in streams.items():
+            check(all(np.array_equal(a, b) for a, b in zip(got, ref[k])),
+                  f"{mode}: {k} stream != the default mode's")
+        check(counts == expected,
+              f"{mode}: (face_cascade, face_prefix, face_finish) launches "
+              f"{counts}, expected {expected}")
+        launches = [x + y for x, y in zip(launches, counts)]
+        summary[mode] = dict(
+            golden_equal=True, stream_equal_default=True,
+            detect_sweep_equal=True, calls=calls, launches=counts,
+            expected_launches=expected,
+            headline_detections=int(wants[0].shape[0]),
+            rotated_detections=int(rot_outs[0].shape[0]),
+            hd_min_hits=int(min(o.shape[0] for o in hd_outs)))
+        emit("main_path", mode=mode, **summary[mode])
 
     # Streamed ms/frame, as bench.py times the TPU package: drain the
     # stream, then cluster every frame, inside one timed rep.
     timing = {}
-    for name, fr, cfg, depth, reps in (
-            ("headline", frames, HEADLINE, STREAM_DEPTH, 5),
-            ("hd1080", hdf, HD, HD_DEPTH, 3)):
-        stats = PipelineStats()
-        per_frame = []
-        face_cuda.face_cascade_launches = 0
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            with stats.stage("stream_hits", items=len(fr)):
-                hits = list(fc.stream_hits(fr, depth=depth, **cfg))
-            with stats.stage("cluster", items=len(fr)):
-                n_cl = sum(cluster_detections(h, 0.2).shape[0] for h in hits)
-            per_frame.append((time.perf_counter() - t0) / len(fr) * 1e3)
-            check(n_cl >= len(fr), f"{name}: faces lost in the timed stream")
-        per_frame.sort()
-        launches_per_frame = face_cuda.face_cascade_launches / (reps * len(fr))
-        check(launches_per_frame == 1.0,
-              f"{name}: {launches_per_frame} launches per frame")
-        timing[name] = dict(
-            ms_per_frame_best=per_frame[0],
-            ms_per_frame_median=per_frame[len(per_frame) // 2],
-            reps=reps, frames=len(fr), depth=depth,
-            launches_per_frame=launches_per_frame,
-            stages={k: v["seconds"] / v["items"] * 1e3
-                    for k, v in stats.as_dict()["stages"].items()},
-            card=card)
-        emit("main_path_time", shape=name, **timing[name])
-    return {"launches": launches, "timing": timing}
+    runs = [(mode, 0.0) for mode in MODES] + [("default", ROT_ANGLE),
+                                             ("prefix", ROT_ANGLE)]
+    for mode, angle in runs:
+        fc = cascades[mode]
+        key = mode if angle == 0.0 else f"{mode}_angle_{angle}"
+        timing[key] = {}
+        for name, fr, cfg, depth, reps in (
+                ("headline", frames, HEADLINE, STREAM_DEPTH,
+                 5 if key == "default" else 2),
+                ("hd1080", hdf, HD, HD_DEPTH, 3 if key == "default" else 2)):
+            stats = PipelineStats()
+            per_frame = []
+            reset_face_counts()
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                with stats.stage("stream_hits", items=len(fr)):
+                    hits = list(fc.stream_hits(fr, depth=depth, angle=angle,
+                                               **cfg))
+                with stats.stage("cluster", items=len(fr)):
+                    n_cl = sum(cluster_detections(h, 0.2).shape[0]
+                               for h in hits)
+                per_frame.append((time.perf_counter() - t0) / len(fr) * 1e3)
+                check(angle > 0.0 or n_cl >= len(fr),
+                      f"{key} {name}: faces lost in the timed stream")
+            per_frame.sort()
+            per = tuple(n / (reps * len(fr)) for n in face_counts())
+            check(per == MODES[mode][1],
+                  f"{key} {name}: {per} launches per frame")
+            timing[key][name] = dict(
+                ms_per_frame_best=per_frame[0],
+                ms_per_frame_median=per_frame[len(per_frame) // 2],
+                reps=reps, frames=len(fr), depth=depth,
+                launches_per_frame=per,
+                stages={k: v["seconds"] / v["items"] * 1e3
+                        for k, v in stats.as_dict()["stages"].items()},
+                card=card)
+            emit("main_path_time", mode=mode, angle=angle, shape=name,
+                 **timing[key][name])
+    return {"launches": dict(zip(
+        ("face_cascade", "face_prefix", "face_finish"), launches)),
+        "timing": timing, "modes": summary}
 
 
 def _same_results(a, b) -> bool:
@@ -549,6 +774,20 @@ def phase_detector(gray, hd, golden, det, card) -> dict:
     res_cpu = det_cpu.detect(gray, rows, cols, params, iou_threshold=iou,
                              uniforms=(u_eyes, u_lmk))
     check(_same_results(res, res_cpu), "detect on the card != on the CPU")
+    # rotated: the faces of the golden rotation, and the card equal to the
+    # CPU with the same uniforms
+    rot = det.detect(gray, rows, cols, params, angle=ROT_ANGLE,
+                     iou_threshold=iou, generator=frame_generator(0))
+    rot_cpu = det_cpu.detect(gray, rows, cols, params, angle=ROT_ANGLE,
+                             iou_threshold=iou, generator=frame_generator(0))
+    check(_same_results(rot, rot_cpu),
+          f"detect at angle {ROT_ANGLE} on the card != on the CPU")
+    rot_want = cluster_detections(np.asarray(
+        golden["rotations"][0]["detections"], np.float64), iou)
+    check(golden["rotations"][0]["angle"] == ROT_ANGLE and
+          [[r.face.row, r.face.col, r.face.scale] for r in rot]
+          == [list(map(int, d[:3])) for d in rot_want if d[3] > Q_THRESH],
+          f"faces at angle {ROT_ANGLE} != the golden rotation's clusters")
     summary = {}
     for name, frames, prm, _ in streams:
         got = streamed[name]
@@ -571,7 +810,10 @@ def phase_detector(gray, hd, golden, det, card) -> dict:
     emit("detector", golden_faces_equal=True, golden_eyes_equal=True,
          golden_points_equal=True,
          detector_points_equal_golden=detector_points_golden,
-         cpu_equal=True, stream_equal=True, detect_launches=single,
+         cpu_equal=True, rotated_cpu_equal=True,
+         rotated_faces=[[r.face.row, r.face.col, r.face.scale, len(r.eyes),
+                         len(r.landmarks)] for r in rot],
+         stream_equal=True, detect_launches=single,
          streams=summary, launches=launches)
 
     # ---- streamed ms/frame, then a serial face / cluster / post breakdown
@@ -647,41 +889,86 @@ def main() -> int:
                            GOLDEN_TAG + ".json")) as fh:
         det_golden = json.load(fh)
 
-    phase_build()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build)
     forest = FaceCascade().tensors
-    kstats = phase_kernel(gray, hd, forest, card)
+    kstats = timed("kernel", phase_kernel, gray, hd, forest, card)
     det = FaceDetector()
-    c = det_golden["config"]
-    pstats = phase_pupil_kernel(
-        (("sample", gray, dict(min_size=c["min_size"],
-                               max_size=c["max_size"],
-                               shift_factor=c["shift_factor"],
-                               scale_factor=c["scale_factor"])),
-         ("hd1080", hd, DET_HD)), det, card)
-    main = phase_main_path(gray, hd, golden, card)
-    dmain = phase_detector(gray, hd, det_golden, det, card)
+    pstats = timed("pupil_kernel", phase_pupil_kernel, (
+        ("sample", gray, _cfg(det_golden)), ("hd1080", hd, DET_HD)), det,
+        card)
+    main = timed("main_path", phase_main_path, gray, hd, {
+        "sample_dense": golden, GOLDEN_TAG: det_golden}, card)
+    dmain = timed("detector", phase_detector, gray, hd, det_golden, det,
+                  card)
+    emit("phase_seconds", **seconds)
     check("jax" not in sys.modules and "pigo_tpu" not in sys.modules,
           "the port pulled in jax or pigo_tpu")
 
-    head = kstats["shapes"]["headline"]
+    shapes = kstats["shapes"]
+    head = shapes["headline"]
     post = [pstats["shapes"]["sample"][k] for k in ("eyes", "landmarks")]
+    TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by")
+
+    def pick(d, keys=TIME_KEYS):
+        return {k: d[k] for k in keys}
+
     kernels = [{
         "name": "face_cascade",
         "route": "cuda",
         "source": "pigo_tpu_torch/csrc/face_cascade.cu",
         "replaces": "pigo_tpu/ops/face_pallas.py:635",
-        "launches": main["launches"],
-        "max_abs_err": kstats["max_abs_err"],
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
+        "launches": main["launches"]["face_cascade"],
+        "max_abs_err": kstats["max_abs_err"]["face_cascade"],
+        **pick(head),
         "library_ms": None,
-        "check": "bitwise equal to ops/face_dense.classify_windows",
+        "check": "bitwise equal to ops/face_dense.classify_windows "
+                 "(upright at T and 32 trees, rotated at T)",
         "survivors_only_ms": head["survivors_only_ms"],
-        "hd1080": {k: kstats["shapes"]["hd1080"][k]
-                   for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                             "survivors_only_ms")},
+        "hd1080": pick(shapes["hd1080"],
+                       TIME_KEYS + ("survivors_only_ms",)),
+        "rotated": {k: pick(v["rotated"]) for k, v in shapes.items()},
+    }, {
+        "name": "face_prefix",
+        "route": "cuda",
+        "source": "pigo_tpu_torch/csrc/face_prefix.cu",
+        "replaces": "pigo_tpu/ops/face_pallas.py:863",
+        "launches": main["launches"]["face_prefix"],
+        "max_abs_err": kstats["max_abs_err"]["face_prefix"],
+        **pick(head["prefix"]["upright"]),
+        "library_ms": None,
+        "check": "bitwise equal to ops/face_dense.classify_windows at "
+                 "t_limit 32 over the tail scales (upright and rotated)",
+        "ms_is": "the headline's 22 tail scales, upright",
+        "survivors": head["prefix"]["upright"]["survivors"],
+        "per_shape": {k: {a: pick(v["prefix"][a], TIME_KEYS + ("survivors",))
+                          for a in ("upright", "rotated")}
+                      for k, v in shapes.items()},
+    }, {
+        "name": "face_finish",
+        "route": "cuda",
+        "source": "pigo_tpu_torch/csrc/face_cascade.cu",
+        "replaces": "pigo_tpu/models/face.py:313",
+        "replaces_is": "_resolve_consts, the JAX package's exact finish of "
+                       "marked windows (a jnp gather classifier; it has no "
+                       "Pallas kernel)",
+        "launches": main["launches"]["face_finish"],
+        "max_abs_err": kstats["max_abs_err"]["face_finish"],
+        **pick(head["finish"]["upright"]),
+        "library_ms": None,
+        "check": "bitwise equal to ops/face_dense.finish_marked, and to "
+                 "face_cascade at the full forest on every mark",
+        "ms_is": "the marks of the headline's prefix pass, upright",
+        "per_shape": {k: {a: pick(v["finish"][a], TIME_KEYS + ("marks",))
+                          for a in ("upright", "rotated")}
+                      for k, v in shapes.items()},
     }, {
         "name": "pupil_walk",
         "route": "cuda",

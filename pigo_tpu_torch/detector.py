@@ -25,8 +25,12 @@ Jitter: `detect` draws its uniforms from a `torch.Generator` on the host
 frame i of `detect_stream(frames, seed=s)` draws from a generator seeded
 with s + i.
 
-Upright only: angle > 0 raises NotImplementedError, as the face stage does
-(models/face.py). Rotated eye walks are in PupilLocalizer.run_detector.
+Rotation: `angle` > 0 runs the face stage rotated (models/face.py) and
+the eye walks rotated at the same angle; the landmark walks stay upright,
+as in pigo_tpu/detector.py:187-216. A tall strided frame keeps its row
+stride for the face stage (models/face.keeps_stride), and the walks read
+the same device frame through the stride (they clamp columns at cols-1,
+so the pad is never read), as pigo_tpu/detector.py:626-647 does.
 """
 
 from __future__ import annotations
@@ -40,9 +44,10 @@ import torch
 from pigo_tpu_torch.convert import PupilTensors
 from pigo_tpu_torch.models.face import (
     FaceCascade,
-    _check_upright,
     _Slot,
+    angle_index,
     destride,
+    keeps_stride,
 )
 from pigo_tpu_torch.models.landmark import LandmarkLocalizer
 from pigo_tpu_torch.models.pupil import (
@@ -225,7 +230,8 @@ def landmark_anchors(eyes: torch.Tensor):
 
 def fused_post(erow, ecol, escale, pixels, pupil: PupilTensors,
                landmarks: PupilTensors | None, u_eyes, u_lmk, lmk_cids,
-               lmk_flips, *, rows: int, cols: int, dim: int) -> torch.Tensor:
+               lmk_flips, *, rows: int, cols: int, dim: int,
+               angle: float = 0.0) -> torch.Tensor:
     """Eyes + landmarks for F faces, on the pixels' device, with no host
     synchronisation: what pigo_tpu.detector._fused_post_impl computes,
     with its uniforms passed in.
@@ -233,12 +239,13 @@ def fused_post(erow, ecol, escale, pixels, pupil: PupilTensors,
     erow/ecol/escale f32 [2F] eye anchors; pixels uint8 [rows*dim];
     u_eyes f32 [2F, P, 3]; u_lmk f32 [F*npts, P, 3]; lmk_cids int32 and
     lmk_flips bool [F*npts]. Two pupil_walk launches: eyes, then the
-    landmarks anchored on the eyes' medians. Returns [3, 2F + F*npts] f32
-    medians (row, col, scale); with `landmarks=None` the eyes alone."""
+    landmarks anchored on the eyes' medians. The eyes walk rotated at
+    `angle`, the landmarks upright. Returns [3, 2F + F*npts] f32 medians
+    (row, col, scale); with `landmarks=None` the eyes alone."""
     f2 = erow.shape[0]
     zeros = torch.zeros(f2, dtype=torch.int32, device=erow.device)
     eyes = ensemble_medians(pupil, zeros, erow, ecol, escale, zeros.bool(),
-                            u_eyes, pixels, rows, cols, dim)
+                            u_eyes, pixels, rows, cols, dim, angle)
     if landmarks is None:
         return eyes
     npts = lmk_cids.shape[0] // (f2 // 2)
@@ -290,22 +297,26 @@ class FaceDetector:
     # ------------------------------------------------------- face stage
 
     @staticmethod
-    def _frames(gray, rows, cols) -> np.ndarray | torch.Tensor:
-        """A frame (or ImageParams) -> contiguous [1, rows, cols]; a row
+    def _frames(gray, rows, cols, angle: float = 0.0):
+        """A frame (or ImageParams) -> ([1, rows, dim] frames, cols). A row
         stride dim > cols is removed exactly first (models/face.destride:
-        no window or walk probe reads past cols)."""
+        no window or walk probe reads past cols), unless the rotated face
+        stage must read through it (models/face.keeps_stride)."""
         pixels, rows, cols, dim = _coerce_image(gray, rows, cols)
-        if dim is not None and dim != cols:
-            pixels = destride(pixels, rows, cols, dim)
-        return FaceCascade._as_frames(pixels, rows, cols)
+        if dim is None or dim == cols:
+            dim = cols
+        elif not keeps_stride(rows, cols, dim, angle_index(angle)):
+            pixels, dim = destride(pixels, rows, cols, dim), cols
+        return FaceCascade._as_frames(pixels, rows, dim), cols
 
     def _dispatch_faces(self, frames, slot: _Slot, params: CascadeParams,
                         angle: float):
-        _check_upright(angle)
+        """Async face stage of `_frames`'s (frames, cols)."""
+        frames, cols = frames
         return self.face._dispatch(frames, slot, dict(
             min_size=params.min_size, max_size=params.max_size,
             shift_factor=params.shift_factor,
-            scale_factor=params.scale_factor))
+            scale_factor=params.scale_factor), angle_index(angle), cols)
 
     def _faces(self, ticket, iou_threshold: float) -> list[Detection]:
         """Blocking half of the face stage: hits -> clustered detections."""
@@ -324,7 +335,7 @@ class FaceDetector:
                      angle: float = 0.0,
                      iou_threshold: float = 0.15) -> list[Detection]:
         """RunCascade + ClusterDetections (main.go:350-353)."""
-        frames = self._frames(gray, rows, cols)
+        frames = self._frames(gray, rows, cols, angle)
         return self._faces(self._dispatch_faces(
             frames, self.face._single, params, angle), iou_threshold)
 
@@ -349,18 +360,20 @@ class FaceDetector:
         return got[0], (got[1] if len(got) > 1 else None)
 
     def _dispatch_post(self, results: list[FaceResult], face_ticket,
-                       perturbs: int, generator, uniforms):
-        """Async half: the eyes and landmark walks of every qualifying face
-        of a frame and the download of their medians, enqueued without
-        waiting for the device. The walks read the frame the face stage
-        uploaded. None when no face qualifies."""
+                       perturbs: int, generator, uniforms,
+                       angle: float = 0.0):
+        """Async half: the eyes (rotated at `angle`) and landmark walks of
+        every qualifying face of a frame and the download of their
+        medians, enqueued without waiting for the device. The walks read
+        the frame the face stage uploaded. None when no face qualifies."""
         eyed = [r for r in results if r.face.scale > MIN_EYE_FACE_SCALE]
         if self.pupil is None or not eyed:
             return None
         f = len(eyed)
         dev = self.device
         frame = face_ticket.frames[0]
-        rows, cols = frame.shape
+        rows, dim = frame.shape
+        cols = face_ticket.cols
         erow, ecol, escale = to_device(
             eye_anchors([r.face for r in eyed]).T, dev, torch.float32)
         u_eyes, u_lmk = self._uniforms(f, perturbs, generator, uniforms)
@@ -375,7 +388,7 @@ class FaceDetector:
             erow, ecol, escale, frame.reshape(-1), self.pupil.tensors,
             None if lmk is None else lmk.tensors,
             to_device(u_eyes, dev, torch.float32), u_lmk, cids, flips,
-            rows=rows, cols=cols, dim=cols)
+            rows=rows, cols=cols, dim=dim, angle=angle)
         ticket = _PostTicket(
             eyed=eyed, perturbs=perturbs, out=out,
             npts=0 if lmk is None else len(lmk.point_schedule))
@@ -414,12 +427,12 @@ class FaceDetector:
         2 + 15 sequential RunDetector calls per face,
         cmd/pigo/main.go:422-564). `uniforms=(u_eyes [2F, P, 3],
         u_lmk [15F, P, 3])` replaces the generator's draws."""
-        frames = self._frames(gray, rows, cols)
+        frames = self._frames(gray, rows, cols, angle)
         ticket = self._dispatch_faces(frames, self.face._single, params,
                                       angle)
         results = self._results(ticket, iou_threshold)
         self._collect_post(self._dispatch_post(results, ticket, perturbs,
-                                               generator, uniforms))
+                                               generator, uniforms, angle))
         return results
 
     def detect_stream(self, frames, params: CascadeParams = CascadeParams(),
@@ -433,7 +446,6 @@ class FaceDetector:
         in input order. Frame i's results equal
         `detect(frame_i, generator=torch.Generator().manual_seed(seed + i))`.
         """
-        _check_upright(angle)
         depth = max(1, int(depth))
         # frame k's face stage reuses the staging slot of frame k - 2,
         # which has been collected by then
@@ -446,10 +458,11 @@ class FaceDetector:
             results = self._results(ticket, iou_threshold)
             postq.append((results, self._dispatch_post(
                 results, ticket, perturbs,
-                torch.Generator().manual_seed(seed + j), None)))
+                torch.Generator().manual_seed(seed + j), None, angle)))
 
         for i, frame in enumerate(frames):
-            fr = self._frames(frame, frame.shape[-2], frame.shape[-1])
+            fr = self._frames(frame, frame.shape[-2], frame.shape[-1],
+                              angle)
             faceq.append((i, self._dispatch_faces(fr, ring[i % 2], params,
                                                   angle)))
             if len(faceq) >= 2:

@@ -1,4 +1,5 @@
-"""FaceCascade on PyTorch: the upright face-detection serving path.
+"""FaceCascade on PyTorch: the face-detection serving path, upright and
+rotated.
 
 Public surface mirrors pigo_tpu.models.face.FaceCascade and the reference
 library API (core/pigo.go):
@@ -6,16 +7,33 @@ library API (core/pigo.go):
     (*Pigo).RunCascade(cp, angle) -> FaceCascade.run_cascade(...)
     (*Pigo).ClusterDetections     -> pigo_tpu_torch.ops.cluster.cluster_detections
 
-Per frame the card does one upload from a pinned host buffer, one cascade
-launch over every window of the pyramid (ops/face_cuda.py), an on-device
-compaction of the hits into one packed f32 buffer, and one download into
-pinned memory followed by an event; nothing in a frame synchronises the
-host until its hits are collected. Detections are [N, 4] float64
-(row, col, scale, q) with q > 0, in reference scan order (scale-major,
-then row, then col).
+Per frame the card does one upload from a pinned host buffer, the cascade
+launches over every window of the pyramid (ops/face_cuda.py), an
+on-device compaction of the hits into one packed f32 buffer, and one
+download into pinned memory followed by an event; nothing in a frame
+synchronises the host until its hits are collected. Detections are [N, 4]
+float64 (row, col, scale, q) with q > 0, in reference scan order
+(scale-major, then row, then col).
 
-Upright only: angle > 0 raises NotImplementedError (the rotated cascade is
-a later part of the port, ROADMAP.md).
+The launches per frame (or batch) depend on the mode:
+  - default: one `face_cascade` launch over every window;
+  - `tree_cap=K`: `face_cascade` stops each window after K trees (rounded
+    up to a multiple of 4) and marks the survivors, then `face_finish`
+    walks the marked windows through the whole forest;
+  - `prefix=True`: the tail scales (fewer than
+    face_cuda.TAIL_MIN_WINDOWS windows) go to one `face_prefix` launch for
+    the first PREFIX_TREES trees, the other scales to `face_cascade`, then
+    `face_finish` finishes the marks.
+All write one score vector in scan order, and the finish runs before the
+compaction, so no mark reaches a caller. In the JAX package prefix=False
+routes the tail scales to its host C++ engine; the port has no host
+engine yet (ROADMAP.md), so here prefix=False means every scale on the
+card. No environment variable changes any of this.
+
+Rotation: `angle` in (0, 1] turns (a fraction of 2*pi) selects the
+reference's rotated reads at angle_idx = int(32 * min(angle, 1)), as the
+JAX package's device path does (pigo_tpu/models/face.py:637-638); an angle
+whose angle_idx is 0 runs upright there and here.
 """
 
 from __future__ import annotations
@@ -38,17 +56,32 @@ from pigo_tpu_torch.utils.device import resolve_device
 MAX_WINDOWS = 1 << 24
 
 
+def angle_index(angle: float) -> int:
+    """Rotation-table index of an angle in turns; 0 is upright."""
+    return int(32.0 * min(angle, 1.0)) if angle > 0.0 else 0
+
+
 def destride(pixels, rows: int, cols: int, dim: int):
     """Flat [rows*dim] buffer with row stride dim -> contiguous
     [rows*cols] (reference ImageParams.Dim, core/pigo.go:29-34). Exact for
-    the upright cascade: no window read can reach column >= cols (node
-    offsets |(code*s)>>8| < s/2 against the s/2+1 window margin)."""
+    the upright cascade (node offsets |(code*s)>>8| < s/2 against the
+    s/2+1 window margin) and for the rotated one when rows <= cols (reads
+    clamp columns at nrows-1 <= cols-1): no read reaches column >= cols."""
     if dim < cols:
         raise ValueError(f"dim {dim} < cols {cols}")
     if isinstance(pixels, torch.Tensor):
         return pixels.reshape(rows, dim)[:, :cols].contiguous().reshape(-1)
     return np.ascontiguousarray(
         np.asarray(pixels).reshape(rows, dim)[:, :cols]).reshape(-1)
+
+
+def keeps_stride(rows: int, cols: int, dim: int, angle_idx: int) -> bool:
+    """True when a strided frame must keep its row stride: a rotated
+    cascade on a tall frame (rows > cols) clamps columns at nrows-1 >= cols
+    and reads the stride's pad bytes there, as the reference does
+    (pigo_tpu/models/face.py:867-885). Every other strided frame destrides
+    exactly."""
+    return dim != cols and angle_idx > 0 and rows > cols
 
 
 def compact_hits(q: torch.Tensor, cap: int) -> torch.Tensor:
@@ -73,14 +106,6 @@ def compact_hits(q: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.cat([count, idx[:, :cap], val[:, :cap]], dim=1)
 
 
-def _check_upright(angle: float) -> None:
-    if angle > 0.0:
-        raise NotImplementedError(
-            "angle > 0: the rotated face cascade is not ported to "
-            "pigo_tpu_torch yet (ROADMAP.md, rotated pyramid); this port "
-            "runs the upright cascade only")
-
-
 class _Slot:
     """Host staging for one in-flight dispatch: the frames' upload buffer
     and the packed hit list's download buffer, both pinned on a card. A
@@ -92,27 +117,28 @@ class _Slot:
         self.key = None
         self.frames = self.packed = None
 
-    def buffers(self, b: int, rows: int, cols: int, cap: int):
-        if self.key != (b, rows, cols, cap):
+    def buffers(self, b: int, rows: int, dim: int, cap: int):
+        if self.key != (b, rows, dim, cap):
             pin = self.device.type == "cuda"
-            self.frames = torch.empty((b, rows, cols), dtype=torch.uint8,
+            self.frames = torch.empty((b, rows, dim), dtype=torch.uint8,
                                       pin_memory=pin)
             self.packed = torch.empty((b, 1 + 2 * cap), dtype=torch.float32,
                                       pin_memory=pin)
-            self.key = (b, rows, cols, cap)
+            self.key = (b, rows, dim, cap)
         return self.frames, self.packed
 
 
 @dataclasses.dataclass
 class _Ticket:
-    """One dispatched batch: its plan, the frames on the device (the
-    post stage of FaceDetector reads them), the device scores (kept for
-    the dense re-read on overflow), the packed host buffer and its
-    event."""
+    """One dispatched batch: its plan, the frames on the device ([B, rows,
+    dim], the post stage of FaceDetector reads them) and their column
+    count, the device scores (kept for the dense re-read on overflow), the
+    packed host buffer and its event."""
 
     plan: object
     n_frames: int
     cap: int
+    cols: int = 0
     frames: torch.Tensor | None = None
     q: torch.Tensor | None = None
     packed: torch.Tensor | None = None
@@ -122,48 +148,54 @@ class _Ticket:
 class FaceCascade:
     """Face-detection forest resident on a device, with per-geometry plan
     caching. `device=None` means the CUDA card and raises without one;
-    `device="cpu"` runs the plain PyTorch version (tests)."""
+    `device="cpu"` runs the plain PyTorch version (tests). `prefix` and
+    `tree_cap` (0: off) select the routing (module docstring)."""
 
     # Fixed capacity of the packed hit list per frame. Real frames yield
     # tens of raw hits; an overflow (count > cap) triggers a dense re-read.
     HIT_CAPACITY = 4096
 
     def __init__(self, forest: FaceForest | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, *,
+                 prefix: bool = False, tree_cap: int = 0):
         self.device = resolve_device(device)
         self.forest = load_facefinder() if forest is None else forest
         self.tensors = face_forest_from_numpy(
             self.forest.depth, self.forest.codes, self.forest.preds,
             self.forest.thresh, self.device)
+        self.prefix = bool(prefix)
+        self.tree_cap = face_cuda.resolved_cap(tree_cap,
+                                               self.forest.num_trees)
         self._plans: dict[tuple, tuple] = {}
         self._single = _Slot(self.device)
         self._batch = _Slot(self.device)
 
     @classmethod
-    def from_bytes(cls, packet: bytes, device=None) -> "FaceCascade":
-        return cls(unpack_face_cascade(packet), device)
+    def from_bytes(cls, packet: bytes, device=None, **kw) -> "FaceCascade":
+        return cls(unpack_face_cascade(packet), device, **kw)
 
     @classmethod
-    def from_file(cls, path: str, device=None) -> "FaceCascade":
+    def from_file(cls, path: str, device=None, **kw) -> "FaceCascade":
         with open(path, "rb") as fh:
-            return cls.from_bytes(fh.read(), device)
+            return cls.from_bytes(fh.read(), device, **kw)
 
     @classmethod
-    def from_forest(cls, forest, device=None) -> "FaceCascade":
+    def from_forest(cls, forest, device=None, **kw) -> "FaceCascade":
         """Any forest with depth/codes/preds/thresh arrays, e.g. the JAX
         package's (read duck-typed, see convert.py)."""
         return cls(FaceForest(
             depth=int(forest.depth), codes=np.asarray(forest.codes),
             preds=np.asarray(forest.preds), thresh=np.asarray(forest.thresh),
-        ), device)
+        ), device, **kw)
 
     # ------------------------------------------------------------ plan
 
     def _plan(self, rows, cols, min_size, max_size, shift_factor,
-              scale_factor):
-        """(host plan, device base, device scale), built and uploaded once
-        per geometry."""
-        key = (rows, cols, min_size, max_size, shift_factor, scale_factor)
+              scale_factor, angle_idx=0):
+        """(routed plan, device base, device scale), built and uploaded
+        once per geometry, angle and routing."""
+        key = (rows, cols, min_size, max_size, shift_factor, scale_factor,
+               angle_idx, self.prefix, self.tree_cap)
         hit = self._plans.get(key)
         if hit is None:
             plan = build_window_plan(rows, cols, min_size, max_size,
@@ -171,14 +203,37 @@ class FaceCascade:
             if plan.num_windows >= MAX_WINDOWS:
                 raise ValueError(f"{plan.num_windows} windows: the packed "
                                  f"hit list holds indices below {MAX_WINDOWS}")
-            hit = (plan, *face_cuda.device_plan(plan, self.device))
+            routed = face_cuda.route_plan(
+                plan, self.forest.num_trees, prefix=self.prefix,
+                tree_cap=self.tree_cap)
+            hit = (routed, *face_cuda.device_plan(plan, self.device))
             self._plans[key] = hit
         return hit
+
+    def _scores(self, frames, routed, base, scale, angle_idx, cols):
+        """Every window's exact score f32 [B, W] in scan order: the
+        routed plan's launches (dense, then prefix) write their column
+        ranges, then the finish overwrites every mark."""
+        f = self.tensors
+        forest = (f.codes, f.preds, f.thresh)
+        kw = dict(angle_idx=angle_idx, cols=cols)
+        q = torch.empty((frames.shape[0], routed.windows.num_windows),
+                        dtype=torch.float32, device=frames.device)
+        for seg in routed.segments:
+            kernel = (face_cuda.face_prefix if seg.prefix
+                      else face_cuda.face_cascade)
+            kernel(frames, base[seg.lo:seg.hi], scale[seg.lo:seg.hi],
+                   *forest, seg.t_limit, out=q[:, seg.lo:seg.hi], **kw)
+        if routed.finish is not None:
+            lo, hi = routed.finish
+            face_cuda.face_finish(frames, base[lo:hi], scale[lo:hi], *forest,
+                                  q[:, lo:hi], **kw)
+        return q
 
     # ------------------------------------------------- dispatch / collect
 
     def _upload(self, frames, staging: torch.Tensor) -> torch.Tensor:
-        """uint8 [B, rows, cols] frames on the device. Host frames go
+        """uint8 [B, rows, dim] frames on the device. Host frames go
         through the (pinned) staging buffer with a non-blocking copy."""
         if isinstance(frames, torch.Tensor):
             if frames.device == self.device:
@@ -189,22 +244,24 @@ class FaceCascade:
         staging.numpy()[...] = frames
         return staging.to(self.device, non_blocking=True)
 
-    def _dispatch(self, frames, slot: _Slot, cfg: dict) -> _Ticket:
-        """Async half: upload, one kernel launch for all frames and scales,
-        hit compaction and the download of the packed hit lists are all
-        enqueued without waiting for the device."""
-        b, rows, cols = frames.shape
-        plan, base, scale = self._plan(rows, cols, **cfg)
+    def _dispatch(self, frames, slot: _Slot, cfg: dict, angle_idx: int = 0,
+                  cols: int | None = None) -> _Ticket:
+        """Async half: the upload, the cascade launches for all frames and
+        scales, the hit compaction and the download of the packed hit lists
+        are all enqueued without waiting for the device. frames are
+        [B, rows, dim] with `cols` <= dim real columns (default dim)."""
+        b, rows, dim = frames.shape
+        cols = dim if cols is None else cols
+        routed, base, scale = self._plan(rows, cols, **cfg,
+                                         angle_idx=angle_idx)
         cap = self.HIT_CAPACITY
-        ticket = _Ticket(plan=plan, n_frames=b, cap=cap)
-        if plan.num_windows == 0:  # frame smaller than the minimum face
+        ticket = _Ticket(plan=routed.windows, n_frames=b, cap=cap, cols=cols)
+        if routed.windows.num_windows == 0:  # frame smaller than min face
             return ticket
-        staging, packed_host = slot.buffers(b, rows, cols, cap)
-        f = self.tensors
+        staging, packed_host = slot.buffers(b, rows, dim, cap)
         ticket.frames = self._upload(frames, staging)
-        ticket.q = face_cuda.face_cascade(
-            ticket.frames, base, scale, f.codes, f.preds, f.thresh,
-            f.num_trees)
+        ticket.q = self._scores(ticket.frames, routed, base, scale,
+                                angle_idx, cols)
         packed_host.copy_(compact_hits(ticket.q, cap), non_blocking=True)
         ticket.packed = packed_host
         if self.device.type == "cuda":
@@ -214,8 +271,8 @@ class FaceCascade:
 
     def _collect(self, ticket: _Ticket) -> list[np.ndarray]:
         """Blocking half: wait for the packed hit lists, decode per frame.
-        The hits are already in scan order (one launch over the plan's
-        windows, no host tail to merge), so no sort is needed."""
+        The hits are already in scan order (one score vector over the
+        plan's windows, no host tail to merge), so no sort is needed."""
         if ticket.q is None:
             return [np.zeros((0, 4), np.float64)
                     for _ in range(ticket.n_frames)]
@@ -242,11 +299,28 @@ class FaceCascade:
         return out
 
     @staticmethod
-    def _as_frames(pixels, rows: int, cols: int):
-        """One frame (flat [rows*cols] or [rows, cols]) -> [1, rows, cols]."""
+    def _as_frames(pixels, rows: int, dim: int):
+        """One frame (flat [rows*dim] or [rows, dim]) -> [1, rows, dim]."""
         if isinstance(pixels, torch.Tensor):
-            return pixels.reshape(1, rows, cols)
-        return np.asarray(pixels).reshape(1, rows, cols)
+            return pixels.reshape(1, rows, dim)
+        return np.asarray(pixels).reshape(1, rows, dim)
+
+    @staticmethod
+    def _layout(pixels, rows, cols, dim, angle_idx):
+        """(pixels, dim) to run: destrided exactly unless the stride must
+        stay (keeps_stride)."""
+        if dim is None or dim == cols:
+            return pixels, cols
+        if dim < cols:
+            raise ValueError(f"dim {dim} < cols {cols}")
+        if keeps_stride(rows, cols, dim, angle_idx):
+            return pixels, dim
+        return destride(pixels, rows, cols, dim), cols
+
+    @staticmethod
+    def _cfg(min_size, max_size, shift_factor, scale_factor) -> dict:
+        return dict(min_size=min_size, max_size=max_size,
+                    shift_factor=shift_factor, scale_factor=scale_factor)
 
     # ---------------------------------------------------------- detection
 
@@ -256,49 +330,46 @@ class FaceCascade:
         """Scores for every pyramid window, reference scan order.
 
         Returns (host coords int32 [W, 3] = (row, col, scale),
-        scores f32 [W]) with -1 for rejected windows."""
-        _check_upright(angle)
-        if dim != cols:
-            pixels = destride(pixels, rows, cols, dim)
-        plan, base, scale = self._plan(rows, cols, min_size, max_size,
-                                       shift_factor, scale_factor)
+        scores f32 [W]) with -1 for rejected windows; marked windows are
+        finished first, so no score is PREFIX_MARK."""
+        a = angle_index(angle)
+        pixels, dim = self._layout(pixels, rows, cols, dim, a)
+        routed, base, scale = self._plan(
+            rows, cols, min_size, max_size, shift_factor, scale_factor, a)
+        plan = routed.windows
         coords = np.stack([plan.rows_w, plan.cols_w, plan.scale_w], axis=1)
         if plan.num_windows == 0:
             return coords, np.zeros(0, np.float32)
-        frames = self._as_frames(pixels, rows, cols)
-        staging, _ = self._single.buffers(1, rows, cols, self.HIT_CAPACITY)
-        f = self.tensors
-        q = face_cuda.face_cascade(
-            self._upload(frames, staging), base, scale, f.codes, f.preds,
-            f.thresh, f.num_trees)
+        staging, _ = self._single.buffers(1, rows, dim, self.HIT_CAPACITY)
+        frames = self._upload(self._as_frames(pixels, rows, dim), staging)
+        q = self._scores(frames, routed, base, scale, a, cols)
         return coords, q[0].cpu().numpy()
 
     def sparse_hits(self, pixels, rows: int, cols: int, *,
                     min_size: int = 20, max_size: int = 1000,
                     shift_factor: float = 0.1, scale_factor: float = 1.1,
                     angle: float = 0.0) -> np.ndarray:
-        """One frame through the card: returns [N, 4] (row, col, scale, q)
-        with q > 0, reference scan order. Only the packed hit list crosses
-        back to the host."""
-        _check_upright(angle)
-        cfg = dict(min_size=min_size, max_size=max_size,
-                   shift_factor=shift_factor, scale_factor=scale_factor)
+        """One contiguous frame through the card: returns [N, 4]
+        (row, col, scale, q) with q > 0, reference scan order. Only the
+        packed hit list crosses back to the host."""
+        cfg = self._cfg(min_size, max_size, shift_factor, scale_factor)
         return self._collect(self._dispatch(
-            self._as_frames(pixels, rows, cols), self._single, cfg))[0]
+            self._as_frames(pixels, rows, cols), self._single, cfg,
+            angle_index(angle)))[0]
 
     def sparse_hits_batch(self, frames, *, min_size: int = 20,
                           max_size: int = 1000, shift_factor: float = 0.1,
                           scale_factor: float = 1.1,
                           angle: float = 0.0) -> list[np.ndarray]:
-        """B frames [B, rows, cols] uint8 in one launch over B x W windows
-        and one download. Returns per-frame [Ni, 4] hit arrays."""
-        _check_upright(angle)
-        cfg = dict(min_size=min_size, max_size=max_size,
-                   shift_factor=shift_factor, scale_factor=scale_factor)
+        """B frames [B, rows, cols] uint8 in one set of launches over
+        B x W windows and one download. Returns per-frame [Ni, 4] hit
+        arrays."""
+        cfg = self._cfg(min_size, max_size, shift_factor, scale_factor)
         if frames.ndim != 3:
             raise ValueError(f"frames must be [B, rows, cols], got "
                              f"{tuple(frames.shape)}")
-        return self._collect(self._dispatch(frames, self._batch, cfg))
+        return self._collect(self._dispatch(frames, self._batch, cfg,
+                                            angle_index(angle)))
 
     def stream_hits(self, frames, *, min_size: int = 20,
                     max_size: int = 1000, shift_factor: float = 0.1,
@@ -310,16 +381,15 @@ class FaceCascade:
         serves the uploads; frame k reuses the slot of frame k - depth,
         which has been collected by then. Yields per-frame [Ni, 4] hit
         arrays in input order."""
-        _check_upright(angle)
-        cfg = dict(min_size=min_size, max_size=max_size,
-                   shift_factor=shift_factor, scale_factor=scale_factor)
+        cfg = self._cfg(min_size, max_size, shift_factor, scale_factor)
+        a = angle_index(angle)
         depth = max(1, int(depth))
         ring = [_Slot(self.device) for _ in range(depth)]
         inflight: collections.deque = collections.deque()
         for k, frame in enumerate(frames):
             rows, cols = frame.shape[-2], frame.shape[-1]
             inflight.append(self._dispatch(
-                self._as_frames(frame, rows, cols), ring[k % depth], cfg))
+                self._as_frames(frame, rows, cols), ring[k % depth], cfg, a))
             if len(inflight) >= depth:
                 yield self._collect(inflight.popleft())[0]
         while inflight:
@@ -332,13 +402,45 @@ class FaceCascade:
                     angle: float = 0.0) -> np.ndarray:
         """Multi-scale detection pass. Returns [N, 4] (row, col, scale, q>0)
         in the reference's scan order. A row stride `dim` > cols is
-        de-strided exactly first."""
-        _check_upright(angle)
-        if dim is not None and dim != cols:
-            pixels = destride(pixels, rows, cols, dim)
-        return self.sparse_hits(
-            pixels, rows, cols, min_size=min_size, max_size=max_size,
-            shift_factor=shift_factor, scale_factor=scale_factor)
+        de-strided exactly first, except for a rotated pass on a tall frame,
+        which reads through the stride (keeps_stride)."""
+        a = angle_index(angle)
+        pixels, dim = self._layout(pixels, rows, cols, dim, a)
+        cfg = self._cfg(min_size, max_size, shift_factor, scale_factor)
+        return self._collect(self._dispatch(
+            self._as_frames(pixels, rows, dim), self._single, cfg, a,
+            cols))[0]
+
+    def run_cascade_sweep(self, pixels, rows: int, cols: int, angles, *,
+                          min_size: int = 20, max_size: int = 1000,
+                          shift_factor: float = 0.1,
+                          scale_factor: float = 1.1) -> np.ndarray:
+        """In-plane rotated detection sweep: the full pyramid at every
+        angle, concatenated as [N, 5] rows (row, col, scale, q, angle). The
+        frame is uploaded once and every angle's launches are enqueued
+        before the first collect. Cluster the result with a small IoU
+        threshold to merge the same face found at neighbouring angles."""
+        cfg = self._cfg(min_size, max_size, shift_factor, scale_factor)
+        angles = [max(float(a), 0.0) for a in angles]
+        if not angles:
+            return np.zeros((0, 5), np.float64)
+        frames = self._as_frames(pixels, rows, cols)
+        staging, _ = self._single.buffers(1, rows, cols, self.HIT_CAPACITY)
+        frames = self._upload(frames, staging)
+        tickets = [self._dispatch(frames, _Slot(self.device), cfg,
+                                  angle_index(a)) for a in angles]
+        parts = []
+        for a, ticket in zip(angles, tickets):
+            dets = self._collect(ticket)[0]
+            parts.append(np.concatenate(
+                [dets, np.full((dets.shape[0], 1), a)], axis=1))
+        return np.concatenate(parts)
+
+    def detect_sweep(self, pixels, rows: int, cols: int, angles, *,
+                     iou_threshold: float = 0.01, **kw) -> np.ndarray:
+        """Angle sweep + cross-angle IoU clustering -> clusters [M, 4]."""
+        dets = self.run_cascade_sweep(pixels, rows, cols, angles, **kw)
+        return cluster_detections(dets[:, :4], iou_threshold)
 
     def detect(self, pixels, rows: int, cols: int, dim: int | None = None,
                *, min_size: int = 20, max_size: int = 1000,

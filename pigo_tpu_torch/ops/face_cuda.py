@@ -1,31 +1,125 @@
-"""The soft-cascade kernel on the card: plan tables, wrapper, launch count.
+"""The soft-cascade kernels on the card: routing, wrappers, launch counts.
 
-`face_cascade` is the port of pigo_tpu/ops/face_pallas.py::_kernel_body
-(the kernel is csrc/face_cascade.cu). Where the TPU path launched one
-kernel per pyramid scale over a routed subset of scales, here every window
-of every scale of every frame goes to one launch, in the plan's scan order
-(scale-major, then row, then col). So the host tail engine, tree-prefix
-mode and the tree cap have no role on this path; `t_limit` still selects
-the prefix semantics (PREFIX_MARK for survivors) when it is below T.
+Three kernels, each with its plain version in ops/face_dense.py, all in
+one library (csrc/face_cascade.cu and csrc/face_prefix.cu, built together):
+  - `face_cascade` (csrc/face_cascade.cu) is the port of
+    pigo_tpu/ops/face_pallas.py::_kernel_body: the first `t_limit` trees
+    over a range of windows, -1 / PREFIX_MARK / final score;
+  - `face_prefix` (csrc/face_prefix.cu) is the port of
+    face_pallas.py::_multi_kernel_body: the first PREFIX_TREES trees over
+    the tail scales' windows with the trees staged in shared memory,
+    -1 / PREFIX_MARK;
+  - `face_finish` (csrc/face_cascade.cu) finishes every PREFIX_MARK
+    window exactly, in place, where the JAX package finishes them on the
+    host (`_resolve_marked`) or with its opt-in device resolver
+    (`_resolve_consts`, pigo_tpu/models/face.py:313-449).
+Each reads the frame upright or rotated (`angle_idx` > 0).
 
-On a CPU tensor the wrapper runs the plain version (ops/face_dense.py); on
-a CUDA tensor it launches the kernel or raises.
+Routing (`route_plan`, the counterpart of build_dense_plan's per-scale
+routing, face_pallas.py:405-431 and :483-488): in tree-prefix mode a scale
+with fewer than TAIL_MIN_WINDOWS windows is a prefix scale; every other
+scale is dense, at the tree cap when one is set. The JAX package's VMEM
+budgets and decimation search are TPU layout and have no counterpart. Nor
+has `prefix_groups` (face_pallas.py:982), which splits the prefix scales
+into groups under VMEM and SMEM budgets: here all prefix windows of a frame
+batch go to one `face_prefix` launch. Nor has PREFIX_MIN_WINDOWS, which
+sends the smallest tail scales to the host engine there (0, none, by
+default): the port has no host tail engine, so a scale the JAX package
+would hand to it runs on the card (dense, or prefix in tree-prefix mode).
+Window counts only fall as the scale grows, so the prefix scales are a
+suffix of the scan order, and one score vector in scan order takes every
+kernel's output in place.
+
+On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
+launches its kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
 from pigo_tpu_torch.ops import face_dense
+from pigo_tpu_torch.ops.pupil_dense import QCOS_TABLE, QSIN_TABLE
 from pigo_tpu_torch.ops.windows import WindowPlan
 from pigo_tpu_torch.utils import build
 
-# Kernel launches made by `face_cascade` (CUDA tensors only). Callers reset
-# it to 0 and read it to show that a run went through the kernel.
+# Kernel launches made by each wrapper (CUDA tensors only). Callers reset
+# them to 0 and read them to show that a run went through the kernels.
 face_cascade_launches = 0
+face_prefix_launches = 0
+face_finish_launches = 0
+
+# Routing constants (pigo_tpu/ops/face_pallas.py:83, :113-154). Plans are
+# cached per FaceCascade, so a changed value takes effect on new instances.
+TAIL_MIN_WINDOWS = 6144  # scales below this many windows are tail scales
+PREFIX_TREES = 32  # trees a prefix scale is evaluated for before the finish
+
+# Dynamic shared memory `face_prefix` asks for per block: the staged
+# tables, t_limit * (8 * leaves + 4) bytes, must fit (16,512 B for 32
+# facefinder trees). 48 KB is what a block gets without opting in.
+PREFIX_SMEM_BYTES = 48 * 1024
+
+
+def resolved_cap(tree_cap: int, n_trees: int) -> int:
+    """The dense tree cap in effect (FaceCascade._resolved_cap,
+    pigo_tpu/models/face.py:177-188): rounded up to a multiple of 4, and 0
+    when it is 0 or would not trim the forest."""
+    cap = -(-int(tree_cap) // 4) * 4 if tree_cap > 0 else 0
+    return 0 if cap >= n_trees else cap
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """One kernel launch: windows [lo, hi) of the scan order."""
+
+    lo: int
+    hi: int
+    prefix: bool  # face_prefix (True) or face_cascade
+    t_limit: int
+
+
+@dataclasses.dataclass(frozen=True)
+class RoutedPlan:
+    """A window plan with its per-scale routes (host numpy).
+
+    prefix / t_limits: bool / int [S] per scale of windows.scales;
+    segments: the launches, dense ones first, then the one prefix launch;
+    finish: the window range [lo, hi) holding every window that can be
+    marked (None when no scale is capped or prefix)."""
+
+    windows: WindowPlan
+    prefix: np.ndarray
+    t_limits: np.ndarray
+    segments: tuple[Segment, ...]
+    finish: tuple[int, int] | None
+
+
+def route_plan(plan: WindowPlan, n_trees: int, *, prefix: bool,
+               tree_cap: int = 0) -> RoutedPlan:
+    """Route each scale of `plan` (module docstring)."""
+    cap = resolved_cap(tree_cap, n_trees)
+    counts = np.bincount(plan.scale_idx, minlength=plan.scales.size)
+    is_prefix = np.array(
+        [prefix and PREFIX_TREES < n_trees and w < TAIL_MIN_WINDOWS
+         for w in counts], bool)
+    t_limits = np.where(is_prefix, PREFIX_TREES, cap or n_trees)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    runs: list[Segment] = []
+    for k in range(plan.scales.size):
+        lo, hi = int(starts[k]), int(starts[k + 1])
+        key = (bool(is_prefix[k]), int(t_limits[k]))
+        if runs and (runs[-1].prefix, runs[-1].t_limit) == key:
+            runs[-1] = dataclasses.replace(runs[-1], hi=hi)
+        else:
+            runs.append(Segment(lo, hi, *key))
+    marked = [s for s in runs if s.t_limit < n_trees]
+    finish = (marked[0].lo, marked[-1].hi) if marked else None
+    segments = tuple(sorted(runs, key=lambda s: s.prefix))  # A, then B
+    return RoutedPlan(plan, is_prefix, t_limits, segments, finish)
 
 
 def device_plan(plan: WindowPlan, device: torch.device):
@@ -40,21 +134,47 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.pigo_face_cascade.restype = i
     lib.pigo_face_cascade.argtypes = [
-        vp, ll, ll, i, vp, vp, ll, vp, vp, vp, i, i, i, vp, vp,
+        vp, ll, i, i, i, vp, vp, ll, vp, vp, vp, i, i, i, i, i, i, vp, ll, vp,
+    ]
+    lib.pigo_face_prefix.restype = i
+    lib.pigo_face_prefix.argtypes = [
+        vp, ll, i, i, i, vp, vp, ll, vp, vp, vp, i, i, i, i, i, vp, ll, i, vp,
+    ]
+    lib.pigo_face_finish.restype = i
+    lib.pigo_face_finish.argtypes = [
+        vp, ll, i, i, i, vp, vp, ll, vp, vp, vp, i, i, i, i, i, vp, ll, vp,
     ]
     lib.pigo_cuda_error_string.restype = ctypes.c_char_p
     lib.pigo_cuda_error_string.argtypes = [i]
 
 
 def load_kernel() -> ctypes.CDLL:
-    """Build (at first use) and bind the kernel library."""
+    """Build (at first use) and bind the face kernels' library
+    (csrc/face_cascade.cu with csrc/face_prefix.cu)."""
     return build.load("face_cascade", _bind)
 
 
-def _check(frames, base, scale, codes, preds, thresh, t_limit):
+def prefix_smem_bytes(t_limit: int, leaves: int) -> int:
+    """Shared memory `face_prefix` stages: codes (4 B), preds (4 B) per
+    node slot and thresh (4 B) per tree."""
+    return t_limit * (8 * leaves + 4)
+
+
+def _check(frames, base, scale, codes, preds, thresh, angle_idx, cols,
+           out=None):
+    """Validates the common inputs; returns cols."""
     if frames.dtype != torch.uint8 or frames.dim() != 3:
-        raise ValueError(f"frames must be uint8 [B, rows, cols], got "
+        raise ValueError(f"frames must be uint8 [B, rows, dim], got "
                          f"{frames.dtype} {tuple(frames.shape)}")
+    b, _, dim = frames.shape
+    cols = dim if cols is None else int(cols)
+    if not 1 <= cols <= dim:
+        raise ValueError(f"cols {cols} outside [1, dim {dim}]")
+    if not 0 <= angle_idx < len(QCOS_TABLE):
+        raise ValueError(f"angle_idx {angle_idx} outside the rotation table")
+    if angle_idx == 0 and cols != dim:
+        raise ValueError("upright reads take a contiguous frame (cols == "
+                         "dim): destride it first")
     w = base.shape[0] if base.dim() == 1 else -1
     for name, t in (("base", base), ("scale", scale)):
         if t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] != w:
@@ -70,54 +190,156 @@ def _check(frames, base, scale, codes, preds, thresh, t_limit):
             "forest tensors must be codes int8 [T, L, 4], preds f32 [T, L], "
             "thresh f32 [T] with L a power of two; got "
             f"{tuple(codes.shape)} {tuple(preds.shape)} {tuple(thresh.shape)}")
-    if not 1 <= t_limit <= t_num:
-        raise ValueError(f"t_limit {t_limit} outside [1, {t_num}]")
-    devs = {t.device for t in (frames, base, scale, codes, preds, thresh)}
+    tensors = [frames, base, scale, codes, preds, thresh]
+    if out is not None:
+        if (out.dtype != torch.float32 or tuple(out.shape) != (b, w)
+                or (w > 1 and out.stride(1) != 1)):
+            raise ValueError(f"out must be f32 [{b}, {w}] with unit column "
+                             f"stride, got {out.dtype} {tuple(out.shape)}")
+        tensors.append(out)
+    devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"tensors on different devices: {devs}")
-    if not all(t.is_contiguous()
-               for t in (frames, base, scale, codes, preds, thresh)):
-        raise ValueError("face_cascade needs contiguous tensors")
+    if not all(t.is_contiguous() for t in tensors[:6]):
+        raise ValueError("the face kernels need contiguous inputs")
+    return cols
+
+
+def _device(frames, name):
+    dev = frames.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    return dev
+
+
+def _common_args(frames, base, scale, codes, preds, thresh, cols):
+    """The leading C arguments shared by the three entry points."""
+    if codes.data_ptr() % 4:
+        raise ValueError("codes must be 4-byte aligned (read as char4)")
+    b, nrows, dim = frames.shape
+    return (frames.data_ptr(), b, nrows, dim, cols, base.data_ptr(),
+            scale.data_ptr(), base.shape[0], codes.data_ptr(),
+            preds.data_ptr(), thresh.data_ptr(),
+            preds.shape[1].bit_length() - 1)
+
+
+def _rotation(angle_idx):
+    return (int(angle_idx > 0), QCOS_TABLE[angle_idx], QSIN_TABLE[angle_idx])
+
+
+def _run(lib, fn, args, frames, what):
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream(frames.device).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        msg = lib.pigo_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
+
+
+def _out(frames, base, out):
+    if out is None:
+        out = torch.empty((frames.shape[0], base.shape[0]),
+                          dtype=torch.float32, device=frames.device)
+    return out
 
 
 def face_cascade(
-    frames: torch.Tensor,  # uint8 [B, rows, cols]
+    frames: torch.Tensor,  # uint8 [B, rows, dim]
     base: torch.Tensor,  # int32 [W] r*cols + c per window
     scale: torch.Tensor,  # int32 [W] pyramid scale per window
     codes: torch.Tensor,  # int8 [T, L, 4]
     preds: torch.Tensor,  # f32 [T, L]
     thresh: torch.Tensor,  # f32 [T]
     t_limit: int,
+    *,
+    angle_idx: int = 0,
+    cols: int | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Soft-cascade scores f32 [B, W] for every window of every frame
-    (semantics in ops/face_dense.py). The windows must lie inside the frame
-    with the pyramid margin (as build_window_plan makes them): the kernel
-    does not bounds-check its pixel reads."""
+    (semantics in ops/face_dense.py), written into `out` when given (a
+    [B, W] view with unit column stride, e.g. a column range of a larger
+    score array). Upright windows must lie inside the frame with the
+    pyramid margin (as build_window_plan makes them): the kernel does not
+    bounds-check upright reads."""
     global face_cascade_launches
-    _check(frames, base, scale, codes, preds, thresh, t_limit)
-    dev = frames.device
+    cols = _check(frames, base, scale, codes, preds, thresh, angle_idx, cols,
+                  out)
+    if not 1 <= t_limit <= preds.shape[0]:
+        raise ValueError(f"t_limit {t_limit} outside [1, {preds.shape[0]}]")
+    dev = _device(frames, "face_cascade")
     if dev.type == "cpu":
-        return face_dense.classify_windows(frames, base, scale, codes, preds,
-                                           thresh, t_limit)
-    if dev.type != "cuda":
-        raise ValueError(f"face_cascade runs on cuda or cpu, not {dev}")
-    if codes.data_ptr() % 4:
-        raise ValueError("codes must be 4-byte aligned (read as char4)")
-    b, rows, cols = frames.shape
-    w = base.shape[0]
-    out = torch.empty((b, w), dtype=torch.float32, device=dev)
+        q = face_dense.classify_windows(frames, base, scale, codes, preds,
+                                        thresh, t_limit, angle_idx=angle_idx,
+                                        cols=cols)
+        return q if out is None else out.copy_(q)
+    out = _out(frames, base, out)
     if out.numel() == 0:
         return out
-    lib = load_kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pigo_face_cascade(
-            frames.data_ptr(), b, rows * cols, cols, base.data_ptr(),
-            scale.data_ptr(), w, codes.data_ptr(), preds.data_ptr(),
-            thresh.data_ptr(), preds.shape[1].bit_length() - 1,
-            preds.shape[0], t_limit, out.data_ptr(), stream)
-    if rc != 0:
-        msg = lib.pigo_cuda_error_string(rc).decode()
-        raise RuntimeError(f"face_cascade launch failed: {msg} ({rc})")
+    args = _common_args(frames, base, scale, codes, preds, thresh, cols)
+    _run(load_kernel(), "pigo_face_cascade",
+         args + (preds.shape[0], t_limit, *_rotation(angle_idx),
+                 out.data_ptr(), out.stride(0)),
+         frames, "face_cascade")
     face_cascade_launches += 1
     return out
+
+
+def face_prefix(frames, base, scale, codes, preds, thresh, t_limit, *,
+                angle_idx=0, cols=None, out=None) -> torch.Tensor:
+    """Tree-prefix scores f32 [B, W]: -1 for a window that fails within the
+    first `t_limit` trees (1 <= t_limit < T), PREFIX_MARK for one that
+    survives them (arguments as `face_cascade`). Raises ValueError when
+    the t_limit trees' tables exceed PREFIX_SMEM_BYTES of shared memory,
+    on either device."""
+    global face_prefix_launches
+    cols = _check(frames, base, scale, codes, preds, thresh, angle_idx, cols,
+                  out)
+    if not 1 <= t_limit < preds.shape[0]:
+        raise ValueError(f"t_limit {t_limit} outside [1, {preds.shape[0]})")
+    smem = prefix_smem_bytes(t_limit, preds.shape[1])
+    if smem > PREFIX_SMEM_BYTES:
+        raise ValueError(f"{t_limit} trees of {preds.shape[1]} leaves stage "
+                         f"{smem} B, above the {PREFIX_SMEM_BYTES} B of "
+                         "shared memory face_prefix asks for")
+    dev = _device(frames, "face_prefix")
+    if dev.type == "cpu":
+        q = face_dense.classify_windows(frames, base, scale, codes, preds,
+                                        thresh, t_limit, angle_idx=angle_idx,
+                                        cols=cols)
+        return q if out is None else out.copy_(q)
+    out = _out(frames, base, out)
+    if out.numel() == 0:
+        return out
+    args = _common_args(frames, base, scale, codes, preds, thresh, cols)
+    _run(load_kernel(), "pigo_face_prefix",
+         args + (t_limit, *_rotation(angle_idx), out.data_ptr(),
+                 out.stride(0), smem),
+         frames, "face_prefix")
+    face_prefix_launches += 1
+    return out
+
+
+def face_finish(frames, base, scale, codes, preds, thresh, q, *,
+                angle_idx=0, cols=None) -> torch.Tensor:
+    """The exact finish, in place: every PREFIX_MARK score of q f32 [B, W]
+    (a view with unit column stride over the windows base/scale describe)
+    becomes the window's full-forest score; the other scores stay. Returns
+    q. Plain version: face_dense.finish_marked."""
+    global face_finish_launches
+    cols = _check(frames, base, scale, codes, preds, thresh, angle_idx, cols,
+                  q)
+    dev = _device(frames, "face_finish")
+    if dev.type == "cpu":
+        return face_dense.finish_marked(frames, base, scale, codes, preds,
+                                        thresh, q, angle_idx=angle_idx,
+                                        cols=cols)
+    if q.numel() == 0:
+        return q
+    args = _common_args(frames, base, scale, codes, preds, thresh, cols)
+    _run(load_kernel(), "pigo_face_finish",
+         args + (preds.shape[0], *_rotation(angle_idx), q.data_ptr(),
+                 q.stride(0)),
+         frames, "face_finish")
+    face_finish_launches += 1
+    return q

@@ -1,12 +1,14 @@
 """Build-on-first-use for the port's CUDA kernels.
 
-Each `csrc/<name>.cu` compiles with nvcc into a shared library with a plain
-C interface and loads with ctypes (no PyTorch headers, so a build takes
+Each library compiles with nvcc from `csrc/<name>.cu` (and the further
+sources SOURCES lists for it) into a shared library with a plain C
+interface and loads with ctypes (no PyTorch headers, so a build takes
 seconds). Target `sm_90a` (Hopper). `--fmad=false` keeps every f32 product
 and sum rounded separately, as the reference does.
 
 Libraries go to `build/pigo_tpu_torch/` beside the package, named by a hash
-of the source and flags, so an edited source never loads a stale build. The
+of the sources, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited source or header never loads a stale build. The
 compiler's `-Xptxas -v` report (registers, spills) is kept beside each
 library as `<name>.ptxas.txt`.
 """
@@ -29,7 +31,11 @@ NVCC_FLAGS = [
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# Loaded kernel libraries by source name (the only module state).
+# Libraries built from more than one source: name -> sources. The face
+# kernels' entry points share one library and one binder (ops/face_cuda.py).
+SOURCES = {"face_cascade": ("face_cascade.cu", "face_prefix.cu")}
+
+# Loaded kernel libraries by name (the only module state).
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -45,14 +51,22 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def sources(name: str) -> tuple[str, ...]:
+    """The csrc/ files library `name` compiles."""
+    return SOURCES.get(name, (name + ".cu",))
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [*sources(name), *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as fh:
+            digest.update(fname.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless a build of this exact source exists.
+    """Compile library `name` unless a build of these exact sources exists.
     Returns the library path; raises RuntimeError with the compiler's
     output when nvcc fails."""
     so = library_path(name)
@@ -61,10 +75,10 @@ def build(name: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC_DIR, name + ".cu")]
+           *(os.path.join(CSRC_DIR, f) for f in sources(name))]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
     with open(os.path.join(BUILD_DIR, name + ".ptxas.txt"), "w") as fh:
         fh.write(proc.stderr)
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
@@ -72,13 +86,13 @@ def build(name: str) -> str:
 
 
 def ptxas_report(name: str) -> str:
-    """The `-Xptxas -v` output of the last build of csrc/<name>.cu."""
+    """The `-Xptxas -v` output of the last build of library `name`."""
     with open(os.path.join(BUILD_DIR, name + ".ptxas.txt")) as fh:
         return fh.read()
 
 
 def load(name: str, bind) -> ctypes.CDLL:
-    """Build (at first use) and load csrc/<name>.cu, then `bind(lib)` sets
+    """Build (at first use) and load library `name`, then `bind(lib)` sets
     its functions' argtypes and restypes; cached per process."""
     with _lock:
         lib = _libs.get(name)

@@ -71,6 +71,108 @@ def test_kernel_matches_plain_on_card(cuda_device, gray):
         assert torch.equal(qk, qp)
 
 
+def _random_forest(seed, depth, trees, device):
+    rng = np.random.default_rng(seed)
+    leaves = 1 << depth
+    codes = rng.integers(-128, 128, (trees, leaves, 4)).astype(np.int8)
+    codes[:, 0] = 0
+    preds = rng.uniform(-1.0, 1.0, (trees, leaves)).astype(np.float32)
+    return face_forest_from_numpy(depth, codes, preds,
+                                  np.full(trees, -1.5, np.float32), device)
+
+
+def test_prefix_rotated_and_finish_match_plain_on_card(cuda_device):
+    """On a random depth-6, 80-tree forest: the prefix kernel (upright and
+    rotated), the rotated cascade kernel and the finish are bit-equal to
+    their plain versions on the card, each one launch for a batch of
+    frames; on a tall strided frame the rotated reads go through the
+    stride."""
+    ft = _random_forest(1, 6, 80, cuda_device)
+    rng = np.random.default_rng(1)
+    cases = [(np.stack([rng.integers(0, 256, (200, 240), dtype=np.uint8)
+                        for _ in range(3)]), 240),
+             (rng.integers(0, 256, (1, 150, 97), dtype=np.uint8), 80)]
+    tables = (ft.codes, ft.preds, ft.thresh)
+    for frames, cols in cases:
+        rows = frames.shape[1]
+        plan = windows.build_window_plan(rows, cols, 10, 120, 0.1, 1.2)
+        base, scale = face_cuda.device_plan(plan, cuda_device)
+        f = torch.from_numpy(frames).to(cuda_device)
+        for a in (0, 2, 4):
+            if a == 0 and cols != frames.shape[2]:
+                continue
+            kw = dict(angle_idx=a, cols=cols)
+            for fn, counter, t_limit in (
+                    (face_cuda.face_prefix, "face_prefix_launches", 32),
+                    (face_cuda.face_cascade, "face_cascade_launches", 80)):
+                before = getattr(face_cuda, counter)
+                got = fn(f, base, scale, *tables, t_limit, **kw)
+                assert getattr(face_cuda, counter) == before + 1
+                want = face_dense.classify_windows(f, base, scale, *tables,
+                                                   t_limit, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want)
+                if t_limit == 32:
+                    marks = got
+            assert (marks == face_dense.PREFIX_MARK).any()
+            before = face_cuda.face_finish_launches
+            got = face_cuda.face_finish(f, base, scale, *tables,
+                                        marks.clone(), **kw)
+            assert face_cuda.face_finish_launches == before + 1
+            want = face_dense.finish_marked(f, base, scale, *tables,
+                                            marks.clone(), **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+def test_prefix_shared_memory_limit_raises_on_card(cuda_device):
+    """The prefix kernel refuses tables above the shared memory it asks
+    for (32 trees of depth 8: 65,664 B) before any launch."""
+    ft = _random_forest(2, 8, 40, cuda_device)
+    frames = torch.zeros((1, 600, 600), dtype=torch.uint8,
+                         device=cuda_device)
+    base = torch.full((4,), 300 * 600 + 300, dtype=torch.int32,
+                      device=cuda_device)
+    scale = torch.full((4,), 100, dtype=torch.int32, device=cuda_device)
+    before = face_cuda.face_prefix_launches
+    with pytest.raises(ValueError, match="shared memory"):
+        face_cuda.face_prefix(frames, base, scale, ft.codes, ft.preds,
+                              ft.thresh, 32)
+    assert face_cuda.face_prefix_launches == before
+    face_cuda.face_prefix(frames, base, scale, ft.codes, ft.preds, ft.thresh,
+                          16)
+    torch.cuda.synchronize()
+    assert face_cuda.face_prefix_launches == before + 1
+
+
+def test_face_cascade_modes_on_card(cuda_device, gray):
+    """FaceCascade(prefix=True) and FaceCascade(tree_cap=32) on the card
+    reproduce the headline golden detections, upright and at angle 0.07;
+    a batch of 4 frames is one launch of each kernel of the mode."""
+    with open(os.path.join(ROOT, "tests", "golden",
+                           "sample_dense.json")) as fh:
+        golden = json.load(fh)
+    frames = np.stack([np.roll(gray, i, axis=1) for i in range(4)])
+    want = FaceCascade().sparse_hits_batch(frames, **HEADLINE)
+    for kw, per_batch in ((dict(prefix=True), (1, 1, 1)),
+                          (dict(tree_cap=32), (1, 0, 1))):
+        fc = FaceCascade(**kw)
+        for angle, dets in ((0.0, golden["detections"]),
+                            (0.07, golden["rotations"][0]["detections"])):
+            assert np.array_equal(
+                fc.run_cascade(gray, 400, 320, angle=angle, **HEADLINE),
+                np.asarray(dets, np.float64).reshape(-1, 4))
+        before = (face_cuda.face_cascade_launches,
+                  face_cuda.face_prefix_launches,
+                  face_cuda.face_finish_launches)
+        got = fc.sparse_hits_batch(frames, **HEADLINE)
+        after = (face_cuda.face_cascade_launches,
+                 face_cuda.face_prefix_launches,
+                 face_cuda.face_finish_launches)
+        assert tuple(x - y for x, y in zip(after, before)) == per_batch
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
 def test_face_cascade_on_card_matches_golden(cuda_device, gray):
     """FaceCascade() on the card: the headline detections and clusters
     equal the frozen corpus, stream_hits and sparse_hits_batch equal

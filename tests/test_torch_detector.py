@@ -25,6 +25,7 @@ from pigo_tpu.models.face import FaceCascade as JaxFaceCascade
 from pigo_tpu_torch import FaceCascade, FaceDetector, PupilLocalizer
 from pigo_tpu_torch import detector as port_det
 from pigo_tpu_torch.detector import CascadeParams, ImageParams
+from test_torch_face_kernel import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = dict(min_size=60, max_size=400, shift_factor=0.3, scale_factor=1.3)
 P = 15
@@ -197,17 +198,21 @@ def test_detect_stream_matches_detect(depth, sample_gray, det):
 
 
 def test_detector_rules(sample_gray, det):
-    """Angles above zero raise; the default generator is seed 0; a strided
-    ImageParams equals the contiguous frame; malformed uniforms and parts
-    on another device are refused; no card means no default detector."""
+    """Angles above zero run rotated in every entry point (detect's faces
+    are detect_faces' above Q_THRESH, detect_stream equals detect); the
+    default generator is seed 0; a strided ImageParams equals the
+    contiguous frame; malformed uniforms and parts on another device are
+    refused; no card means no default detector."""
     rows, cols = sample_gray.shape
     params = CascadeParams(**CFG)
-    with pytest.raises(NotImplementedError):
-        det.detect(sample_gray, rows, cols, params, angle=0.1)
-    with pytest.raises(NotImplementedError):
-        list(det.detect_stream([sample_gray], params, angle=0.1))
-    with pytest.raises(NotImplementedError):
-        det.detect_faces(sample_gray, rows, cols, params, angle=0.1)
+    rot = det.detect(sample_gray, rows, cols, params, angle=0.1, perturbs=P)
+    faces = det.detect_faces(sample_gray, rows, cols, params, angle=0.1)
+    assert [r.face for r in rot] == [d for d in faces
+                                     if d.q > port_det.Q_THRESH]
+    [streamed] = det.detect_stream([sample_gray], params, angle=0.1,
+                                   perturbs=P)
+    assert _same(streamed, rot)
+    assert faces != det.detect_faces(sample_gray, rows, cols, params)
     base = det.detect(sample_gray, rows, cols, params, perturbs=P)
     seeded = det.detect(sample_gray, rows, cols, params, perturbs=P,
                         generator=torch.Generator().manual_seed(0))

@@ -21,6 +21,7 @@ import torch
 
 from pigo_tpu_torch import FaceCascade, cluster_detections
 from pigo_tpu_torch.models import face as port_face
+from test_torch_face_kernel import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
@@ -202,22 +203,36 @@ def test_frame_smaller_than_min_face(fc):
     assert coords.shape == (0, 3) and q.shape == (0,)
 
 
-def test_rotated_request_raises(fc, sample_gray):
-    """angle > 0 is the rotated cascade's slice: it raises, never runs
-    upright."""
-    frames = np.stack([sample_gray])
-    calls = [
-        lambda: fc.run_cascade(sample_gray, 400, 320, angle=0.1),
-        lambda: fc.detect(sample_gray, 400, 320, angle=0.1),
-        lambda: fc.sparse_hits(sample_gray, 400, 320, angle=0.1),
-        lambda: fc.sparse_hits_batch(frames, angle=0.1),
-        lambda: list(fc.stream_hits(frames, angle=0.1)),
-        lambda: fc.window_scores(sample_gray, 400, 320, 320, 20, 1000, 0.1,
-                                 1.1, angle=0.1),
+def test_rotated_request_raises(fc, face_forest, sample_gray):
+    """A rotated request runs the rotated cascade in every entry point,
+    never upright: each gives the NumPy oracle's rotated hits (which differ
+    from the upright ones), and it raises where an upright request does
+    (a row stride below cols)."""
+    from pigo_tpu.oracle.face import oracle_run_cascade
+
+    crop = np.ascontiguousarray(sample_gray[::2, ::2])
+    rows, cols = crop.shape
+    cfg = dict(min_size=40, max_size=160, shift_factor=0.1, scale_factor=1.1)
+    want = oracle_run_cascade(face_forest, crop.ravel(), rows, cols, cols,
+                              *cfg.values(), angle=0.1)
+    upright = fc.run_cascade(crop, rows, cols, **cfg)
+    assert want.shape[0] > 0 and not np.array_equal(want, upright)
+    frames = np.stack([crop])
+    got = [
+        fc.run_cascade(crop, rows, cols, angle=0.1, **cfg),
+        fc.sparse_hits(crop, rows, cols, angle=0.1, **cfg),
+        fc.sparse_hits_batch(frames, angle=0.1, **cfg)[0],
+        list(fc.stream_hits(frames, angle=0.1, **cfg))[0],
     ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="rotated"):
-            call()
+    for dets in got:
+        assert np.array_equal(dets, want)
+    assert np.array_equal(fc.detect(crop, rows, cols, angle=0.1, **cfg),
+                          cluster_detections(want, 0.2))
+    coords, q = fc.window_scores(crop, rows, cols, cols, *cfg.values(),
+                                 angle=0.1)
+    assert np.array_equal(coords[q > 0], want[:, :3].astype(np.int32))
+    with pytest.raises(ValueError, match="dim"):
+        fc.run_cascade(crop, rows, cols, cols - 1, angle=0.1, **cfg)
 
 
 def test_default_device_needs_a_card():

@@ -24,6 +24,21 @@ from pigo_tpu_torch.convert import face_forest_from_numpy
 from pigo_tpu_torch.ops import face_cuda, face_dense, windows
 from pigo_tpu_torch.utils import build
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module's tests, restored after them; the
+    other test_torch_*.py modules import this fixture. The plain versions
+    run many small tensor ops, whose time is dispatch, not arithmetic, so
+    extra threads do not speed them up; under a parallel test run (one
+    worker process per core) they only oversubscribe the cores the other
+    workers need."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 SAMPLE_CFG = dict(min_size=20, max_size=1000, shift_factor=0.1,
                   scale_factor=1.1)
 
@@ -172,12 +187,90 @@ def test_work_count_matches_alive_windows():
             torch.from_numpy(plan.scale_w), ft.codes, ft.preds, ft.thresh)
     total = 0
     for t in range(1, 7):
-        q, evals = face_dense.cascade_with_work(*args, t)
+        q, work = face_dense.cascade_with_work(*args, t)
+        evals = work["evaluations"]
         if t > 1:
             # trees 1..t-1 saw every window still alive before tree t
             assert evals - total == int((q_prev != -1.0).sum())
         total, q_prev = evals, q
     assert total >= frames.shape[0] * plan.num_windows
+
+
+def _reads(frames, pairs, base, scale, cols, forest, t_limit, angle_idx):
+    """What the soft cascade reads for the (frame, window) pairs, one by one
+    in plain Python (the reference loop, core/pigo.go:113-191): the distinct
+    flat pixels, (tree, node) code words and (tree, leaf) leaves, the trees
+    evaluated and the tree evaluations."""
+    from pigo_tpu_torch.ops.pupil_dense import QCOS_TABLE, QSIN_TABLE
+
+    _, nrows, dim = frames.shape
+    leaves = forest.preds.shape[1]
+    pixels, words, leaf_set, trees, evals = set(), set(), set(), set(), 0
+    for f, w in pairs:
+        r, c = divmod(int(base[w]), cols)
+        s = int(scale[w])
+        qc, qs = s * QCOS_TABLE[angle_idx], s * QSIN_TABLE[angle_idx]
+        out = np.float32(0.0)
+        for t in range(t_limit):
+            trees.add(t)
+            evals += 1
+            idx = 1
+            for _ in range(forest.depth):
+                words.add((t, idx))
+                at = []
+                for cr, cc in np.asarray(forest.codes[t, idx],
+                                         np.int64).reshape(2, 2):
+                    if angle_idx:
+                        rr = min(nrows - 1,
+                                 max(0, r * 65536 + qc * cr - qs * cc)
+                                 >> 16)
+                        rc = min(nrows - 1,
+                                 max(0, c * 65536 + qs * cr + qc * cc)
+                                 >> 16)
+                        at.append(min(rr * dim + rc, nrows * dim - 1))
+                    else:
+                        at.append((r + ((cr * s) >> 8)) * dim
+                                  + c + ((cc * s) >> 8))
+                at = [f * nrows * dim + a for a in at]
+                pixels.update(at)
+                p1, p2 = frames.reshape(-1)[at]
+                idx = 2 * idx + int(p1 <= p2)
+            leaf_set.add((t, idx - leaves))
+            out = np.float32(out + forest.preds[t, idx - leaves])
+            if out <= forest.thresh[t]:
+                break
+    return {"evaluations": evals, "trees": len(trees), "pixels": len(pixels),
+            "code_words": len(words), "leaves": len(leaf_set)}
+
+
+@pytest.mark.parametrize("angle_idx", [0, 4])
+def test_work_counts_what_the_cascade_reads(angle_idx):
+    """cascade_with_work and finish_with_work count (chip_smoke.py's byte
+    bound) the distinct pixels, code words and leaves that the reference
+    loop reads, over the whole batch, and fewer pixels than the frames
+    hold; neither changes the scores."""
+    forest = random_forest(9, depth=3, trees=12)
+    frames = np.random.default_rng(9).integers(0, 256, (2, 36, 40),
+                                               dtype=np.uint8)
+    ft = face_forest_from_numpy(forest.depth, forest.codes, forest.preds,
+                                forest.thresh)
+    plan = windows.build_window_plan(36, 40, 10, 30, 0.3, 1.3)
+    args = (torch.from_numpy(frames), torch.from_numpy(plan.base),
+            torch.from_numpy(plan.scale_w), ft.codes, ft.preds, ft.thresh)
+    kw = dict(angle_idx=angle_idx)
+    tables = (plan.base, plan.scale_w, 40, forest)
+    q, work = face_dense.cascade_with_work(*args, 6, **kw)
+    every = [(f, w) for f in range(2) for w in range(plan.num_windows)]
+    assert work == _reads(frames, every, *tables, 6, angle_idx)
+    assert 0 < work["pixels"] < frames.size
+    assert torch.equal(q, face_dense.classify_windows(*args, 6, **kw))
+    marked = q == face_dense.PREFIX_MARK
+    assert marked.any() and (q == -1.0).any()
+    full = face_dense.classify_windows(*args, 12, **kw)
+    fin, fwork = face_dense.finish_with_work(*args, q.clone(), **kw)
+    assert torch.equal(fin, full)
+    marks = torch.nonzero(marked).tolist()
+    assert fwork == _reads(frames, marks, *tables, 12, angle_idx)
 
 
 def test_wrapper_cpu_runs_plain_without_launch():

@@ -39,6 +39,7 @@ from pigo_tpu_torch import LandmarkLocalizer, PupilLocalizer, Puploc
 from pigo_tpu_torch.cascade import assets, format as port_format
 from pigo_tpu_torch.convert import pupil_forest_from_numpy
 from pigo_tpu_torch.ops import pupil_cuda, pupil_dense
+from test_torch_face_kernel import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_TAGS = ["sample", "sample_dense", "wide", "alpha"]
