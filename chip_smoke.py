@@ -17,9 +17,13 @@ the final status line):
      leaves this run's windows read): the face cascade over the
      400x320 headline pyramid and a 1080x1920 tiling of it, upright and
      rotated (plus its time over the surviving windows alone, the
-     dependent load chain that bounds it); the tree-prefix kernel over
-     the tail scales of both pyramids, upright and rotated; the exact
-     finish of the marked windows against the full-forest cascade; the
+     dependent load chain that bounds it, its time when every window
+     walks every tree, and phase 2's longest worklist per block); the
+     edges of its two-phase schedule (a never-failing forest, tree limits
+     36 and 100, a random 80-tree forest, each with the finish of its
+     marks); the tree-prefix kernel over the tail scales of both
+     pyramids, upright and rotated; the exact finish of the marked
+     windows against the full-forest cascade; the
      pupil/landmark walk for the eyes, the 15 landmark points and rotated
      eyes of the faces found in the sample frame and in the 1080p tiling,
      plus seeded random starts;
@@ -80,6 +84,7 @@ DET_HD = dict(min_size=40, max_size=1080, shift_factor=0.1, scale_factor=1.1)
 DET_IOU = 0.1
 DET_DEPTH = 4
 RANDOM_GROUPS = 8  # seeded random walk groups beside the real anchors
+NEVER_FAIL = -1e4  # a threshold no facefinder running sum reaches
 # H100 SXM published peaks (NVIDIA data sheet, at a 700 W power limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -96,38 +101,6 @@ def check(ok: bool, what: str) -> None:
 
 def emit(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields), flush=True)
-
-
-def cuda_ms(fn, reps: int, queue_ahead: bool = False) -> float:
-    """Mean device time of fn() over `reps` back-to-back calls, from CUDA
-    events around the whole run, after two warm-up calls (the second
-    timed on the host).
-
-    queue_ahead: first occupy the stream with a sleep kernel long enough
-    for the host to enqueue every call, so that the events time the
-    kernels back to back on the device and not the host's launch rate (a
-    walk launch runs for tens of microseconds, about what the host takes
-    to issue one)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if queue_ahead:
-        # 2e9 cycles a second bounds the SM clock from above, so the sleep
-        # lasts at least twice the host's enqueue time (capped near 1 s)
-        torch.cuda._sleep(int(min(2e9 * 2 * reps * host_s, 2e9)) + 1)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def plain_run(fn):
@@ -203,6 +176,8 @@ def phase_kernel(gray, hd, forest, card) -> dict:
     from pigo_tpu_torch.models.face import angle_index
     from pigo_tpu_torch.ops import face_cuda, face_dense
     from pigo_tpu_torch.ops.windows import build_window_plan
+    from pigo_tpu_torch.tools.face_sweep import worklist_max
+    from pigo_tpu_torch.utils.device import cuda_ms
 
     dev = forest.codes.device
     rng = np.random.default_rng(SEED)
@@ -213,6 +188,16 @@ def phase_kernel(gray, hd, forest, card) -> dict:
     rot = angle_index(ROT_ANGLE)
     stats = {"max_abs_err": dict.fromkeys(
         ("face_cascade", "face_prefix", "face_finish"), 0.0), "shapes": {}}
+    # the facefinder's codes and leaves with thresholds that never fail
+    # (its sums stay within a few units of 0), and a seeded random forest
+    never = (f.codes, f.preds, torch.full_like(f.thresh, NEVER_FAIL))
+    leaves = 64
+    codes = rng.integers(-128, 128, (80, leaves, 4)).astype(np.int8)
+    codes[:, 0] = 0
+    rand = tuple(torch.from_numpy(x).to(dev) for x in (
+        codes, rng.uniform(-1.0, 1.0, (80, leaves)).astype(np.float32),
+        np.full(80, -1.5, np.float32)))
+    phase1_trees, block_threads = face_cuda.schedule()
 
     def compare(kernel, name, got, want, what):
         torch.cuda.synchronize()
@@ -297,6 +282,38 @@ def phase_kernel(gray, hd, forest, card) -> dict:
                 "face_cascade at the full forest on the prefix marks, "
                 f"untouched elsewhere, angle_idx {a}")
 
+        # The two-phase schedule's edges (csrc/face_cascade.cu): a forest
+        # whose thresholds never fail (every window of every block goes to
+        # the worklist), tree limits that are not multiples of 32, and a
+        # random depth-6, 80-tree forest (phase 2 ends in a partial chunk),
+        # upright and rotated; the marks of each capped cascade finished
+        # against finish_marked.
+        for label, tabs, limits in (("never_fail", never, (t_num, 36, 100)),
+                                    ("facefinder", tables, (36, 100)),
+                                    ("random_d6_t80", rand, (80, 36))):
+            for a in (0, rot):
+                for t_limit in limits:
+                    what = f"{label}, t_limit {t_limit}, angle_idx {a}"
+                    qk = launched("face_cascade_launches",
+                                  lambda: face_cuda.face_cascade(
+                                      ft, base, scale, *tabs, t_limit,
+                                      angle_idx=a))
+                    compare("face_cascade", name, qk,
+                            face_dense.classify_windows(
+                                ft, base, scale, *tabs, t_limit,
+                                angle_idx=a), f"classify_windows, {what}")
+                    if t_limit == tabs[2].shape[0]:
+                        continue
+                    fin = launched("face_finish_launches",
+                                   lambda: face_cuda.face_finish(
+                                       ft, base, scale, *tabs, qk.clone(),
+                                       angle_idx=a))
+                    compare("face_finish", name, fin,
+                            face_dense.finish_marked(
+                                ft, base, scale, *tabs, qk.clone(),
+                                angle_idx=a), f"finish_marked of the {what} "
+                            "marks")
+
         # Times on the first (real) frame alone, as the main path runs it.
         # Each plain version runs once, timed, then once more to count its
         # work.
@@ -314,6 +331,24 @@ def phase_kernel(gray, hd, forest, card) -> dict:
                *tables, t_num)
         survivors_ms = cuda_ms(lambda: face_cuda.face_cascade(*sub), 50,
                                True)
+        # The worst case of the two-phase schedule: every window walks every
+        # tree, each block's whole worklist in phase 2.
+        all_survive_ms = cuda_ms(lambda: face_cuda.face_cascade(
+            one, base, scale, *never, t_num), 5, True)
+        # Phase 2's worklists: per block of block_threads windows, those
+        # alive after phase1_trees trees (the cascade) or marked (the
+        # finish of the prefix marks, upright).
+        alive_k = face_dense.classify_windows(one, base, scale, *tables,
+                                              phase1_trees) != -1.0
+        marks_b = face_dense.classify_windows(one, pb, ps, *tables,
+                                              seg.t_limit) == mark
+        worklist = dict(phase1_trees=phase1_trees,
+                        block_threads=block_threads,
+                        cascade_max=worklist_max(alive_k, block_threads),
+                        cascade_windows=int(alive_k.sum()),
+                        finish_max=worklist_max(marks_b, block_threads),
+                        finish_windows=int(marks_b.sum()))
+        emit("kernel_worklist", shape=name, **worklist)
         w = plan.num_windows
         # Bytes the function must move (`bound`) with the f32 scores
         # written. The plan's window tables (8 B a window) are not counted:
@@ -324,7 +359,8 @@ def phase_kernel(gray, hd, forest, card) -> dict:
             rows=rows, cols=cols, windows=w, scales=len(plan.scales),
             tree_evaluations=evals, survivors=survivors,
             plan_table_bytes=8 * w, ms=ms, plain_ms=plain_ms,
-            survivors_only_ms=survivors_ms,
+            survivors_only_ms=survivors_ms, all_survive_ms=all_survive_ms,
+            worklist=worklist,
             **bound(work, 4 * w, 2 * evals + survivors), card=card)
         rot_plain_ms, q, work = plain_with_work(
             lambda track: face_dense.cascade_with_work(
@@ -409,6 +445,7 @@ def phase_pupil_kernel(frames, det, card) -> dict:
                                          CascadeParams, eye_anchors,
                                          landmark_anchors)
     from pigo_tpu_torch.ops import pupil_cuda, pupil_dense
+    from pigo_tpu_torch.utils.device import cuda_ms
 
     dev = det.device
     rng = np.random.default_rng(SEED)
@@ -930,10 +967,14 @@ def main() -> int:
         **pick(head),
         "library_ms": None,
         "check": "bitwise equal to ops/face_dense.classify_windows "
-                 "(upright at T and 32 trees, rotated at T)",
+                 "(upright at T and 32 trees, rotated at T; the facefinder "
+                 "at 36 and 100 trees, a never-failing forest and a random "
+                 "80-tree forest, upright and rotated)",
         "survivors_only_ms": head["survivors_only_ms"],
+        "all_survive_ms": head["all_survive_ms"],
+        "worklist": head["worklist"],
         "hd1080": pick(shapes["hd1080"],
-                       TIME_KEYS + ("survivors_only_ms",)),
+                       TIME_KEYS + ("survivors_only_ms", "all_survive_ms")),
         "rotated": {k: pick(v["rotated"]) for k, v in shapes.items()},
     }, {
         "name": "face_prefix",

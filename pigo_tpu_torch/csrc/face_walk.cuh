@@ -1,6 +1,7 @@
 // Soft-cascade window walk shared by the face kernels (face_cascade.cu,
-// face_prefix.cu): the node reads, upright and rotated, and the walk of one
-// window through the first t_limit trees.
+// face_prefix.cu): the node reads, upright and rotated, the walk of one
+// tree to its leaf, and the walk of one window through the first t_limit
+// trees.
 //
 // Reference semantics (core/pigo.go:113-191); the plain PyTorch version is
 // pigo_tpu_torch/ops/face_dense.py, whose docstring states the reads:
@@ -81,6 +82,22 @@ struct Reader<true> {
   }
 };
 
+// The leaf slot, in [leaves, 2 * leaves), that one tree sends the window to:
+// from node 1, depth comparisons p1 <= p2 at the node's pixel pair (codes
+// [1 << depth] char4 of the tree).
+template <bool kGlobalTables, class Read>
+__device__ __forceinline__ int leaf_slot(const Read& read, const char4* node,
+                                         int depth) {
+  int idx = 1;
+  for (int d = 0; d < depth; ++d) {
+    const char4 c = load<kGlobalTables>(node + idx);
+    const int p1 = read(c.x, c.y);
+    const int p2 = read(c.z, c.w);
+    idx = 2 * idx + (p1 <= p2 ? 1 : 0);
+  }
+  return idx;
+}
+
 // Walks trees [0, t_limit) of the forest (codes [T, 1 << depth] char4,
 // preds [T, 1 << depth], thresh [T]); true when the window survives them
 // all, with the running sum in *sum.
@@ -93,14 +110,7 @@ __device__ __forceinline__ bool survives(const Read& read,
   const int leaves = 1 << depth;
   float acc = 0.0f;
   for (int t = 0; t < t_limit; ++t) {
-    const char4* node = codes + t * leaves;
-    int idx = 1;
-    for (int d = 0; d < depth; ++d) {
-      const char4 c = load<kGlobalTables>(node + idx);
-      const int p1 = read(c.x, c.y);
-      const int p2 = read(c.z, c.w);
-      idx = 2 * idx + (p1 <= p2 ? 1 : 0);
-    }
+    const int idx = leaf_slot<kGlobalTables>(read, codes + t * leaves, depth);
     acc += load<kGlobalTables>(preds + t * leaves + (idx - leaves));
     if (acc <= load<kGlobalTables>(thresh + t)) return false;
   }

@@ -146,12 +146,24 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     lib.pigo_cuda_error_string.restype = ctypes.c_char_p
     lib.pigo_cuda_error_string.argtypes = [i]
+    lib.pigo_face_schedule.restype = None
+    lib.pigo_face_schedule.argtypes = [ctypes.POINTER(i)]
 
 
 def load_kernel() -> ctypes.CDLL:
     """Build (at first use) and bind the face kernels' library
     (csrc/face_cascade.cu with csrc/face_prefix.cu)."""
     return build.load("face_cascade", _bind)
+
+
+def schedule(lib: ctypes.CDLL | None = None) -> tuple[int, int]:
+    """The two-phase schedule of `face_cascade` and `face_finish`
+    (csrc/face_cascade.cu): (trees a window walks alone before a survivor
+    goes to a warp, windows of a block). From the built library (`lib`, or
+    the one load_kernel builds)."""
+    out = (ctypes.c_int * 2)()
+    (lib or load_kernel()).pigo_face_schedule(out)
+    return out[0], out[1]
 
 
 def prefix_smem_bytes(t_limit: int, leaves: int) -> int:
@@ -214,8 +226,9 @@ def _device(frames, name):
 
 def _common_args(frames, base, scale, codes, preds, thresh, cols):
     """The leading C arguments shared by the three entry points."""
-    if codes.data_ptr() % 4:
-        raise ValueError("codes must be 4-byte aligned (read as char4)")
+    if codes.data_ptr() % 8:
+        raise ValueError("codes must be 8-byte aligned (read as char4, and "
+                         "as pairs of char4 by face_cascade and face_finish)")
     b, nrows, dim = frames.shape
     return (frames.data_ptr(), b, nrows, dim, cols, base.data_ptr(),
             scale.data_ptr(), base.shape[0], codes.data_ptr(),

@@ -73,16 +73,24 @@ def build(name: str) -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, f) for f in sources(name))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+    report = compile_library(
+        [os.path.join(CSRC_DIR, f) for f in sources(name)], so)
     with open(os.path.join(BUILD_DIR, name + ".ptxas.txt"), "w") as fh:
-        fh.write(proc.stderr)
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+        fh.write(report)
     return so
+
+
+def compile_library(paths: list[str], so: str) -> str:
+    """nvcc `paths` into the shared library `so` with NVCC_FLAGS; returns
+    the compiler's report (stderr). Raises RuntimeError with it when nvcc
+    fails."""
+    tmp = f"{so}.{os.getpid()}.tmp"
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {so}:\n{proc.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    return proc.stderr
 
 
 def ptxas_report(name: str) -> str:

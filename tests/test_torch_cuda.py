@@ -125,6 +125,62 @@ def test_prefix_rotated_and_finish_match_plain_on_card(cuda_device):
             assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("forest_kind", ["never_fail", "facefinder",
+                                         "random_d6_t80"])
+def test_cascade_schedule_edges_on_card(cuda_device, gray, forest_kind):
+    """The two-phase schedule of face_cascade and face_finish
+    (csrc/face_cascade.cu) at its edges, bit-equal to the plain versions on
+    the headline pyramid, upright and rotated: thresholds that never fail
+    (every window of every block goes to phase 2's worklist), tree limits
+    that are not multiples of 32 (36, 100), and a random depth-6, 80-tree
+    forest (phase 2 ends in a partial chunk); each capped cascade's marks
+    finished by face_finish."""
+    if forest_kind == "random_d6_t80":
+        ft = _random_forest(3, 6, 80, cuda_device)
+        limits = (80, 36)
+    else:
+        forest = load_facefinder()
+        thresh = forest.thresh
+        if forest_kind == "never_fail":
+            thresh = np.full_like(thresh, -1e4)
+        ft = face_forest_from_numpy(forest.depth, forest.codes, forest.preds,
+                                    thresh, cuda_device)
+        limits = (36, 100) + ((ft.num_trees,) if forest_kind == "never_fail"
+                              else ())
+    tables = (ft.codes, ft.preds, ft.thresh)
+    rng = np.random.default_rng(3)
+    frames = torch.from_numpy(np.stack([
+        gray, rng.integers(0, 256, gray.shape, dtype=np.uint8)])).to(
+            cuda_device)
+    plan = windows.build_window_plan(400, 320, **HEADLINE)
+    base, scale = face_cuda.device_plan(plan, cuda_device)
+    for a in (0, 2):
+        for t_limit in limits:
+            before = (face_cuda.face_cascade_launches,
+                      face_cuda.face_finish_launches)
+            got = face_cuda.face_cascade(frames, base, scale, *tables,
+                                         t_limit, angle_idx=a)
+            want = face_dense.classify_windows(frames, base, scale, *tables,
+                                               t_limit, angle_idx=a)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (a, t_limit)
+            if forest_kind == "never_fail":
+                assert bool((got != -1.0).all())
+            if t_limit == ft.num_trees:
+                assert face_cuda.face_cascade_launches == before[0] + 1
+                continue
+            assert (got == face_dense.PREFIX_MARK).any()
+            fin = face_cuda.face_finish(frames, base, scale, *tables,
+                                        got.clone(), angle_idx=a)
+            want = face_dense.finish_marked(frames, base, scale, *tables,
+                                            got.clone(), angle_idx=a)
+            torch.cuda.synchronize()
+            assert torch.equal(fin, want), (a, t_limit)
+            assert (face_cuda.face_cascade_launches,
+                    face_cuda.face_finish_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+
+
 def test_prefix_shared_memory_limit_raises_on_card(cuda_device):
     """The prefix kernel refuses tables above the shared memory it asks
     for (32 trees of depth 8: 65,664 B) before any launch."""

@@ -283,6 +283,7 @@ import pigo_tpu_torch.utils.profiling
 import pigo_tpu_torch.models.pupil, pigo_tpu_torch.models.landmark
 import pigo_tpu_torch.detector, pigo_tpu_torch.ops.pupil_dense
 import pigo_tpu_torch.ops.pupil_cuda
+import pigo_tpu_torch.tools.face_sweep, pigo_tpu_torch.utils.device
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "pigo_tpu" or m.startswith("pigo_tpu."))
