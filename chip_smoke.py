@@ -22,11 +22,16 @@ the final status line):
      edges of its two-phase schedule (a never-failing forest, tree limits
      36 and 100, a random 80-tree forest, each with the finish of its
      marks); the tree-prefix kernel over the tail scales of both
-     pyramids, upright and rotated; the exact finish of the marked
-     windows against the full-forest cascade; the
+     pyramids, upright and rotated, at the edges of its own schedule
+     (tree limits 1, 32, 33 and 64 on a never-failing forest and a random
+     one, and a random depth-8 forest), with its time when every tail
+     window survives and its longest worklist per block; the exact finish
+     of the marked windows against the full-forest cascade; the
      pupil/landmark walk for the eyes, the 15 landmark points and rotated
      eyes of the faces found in the sample frame and in the 1080p tiling,
-     plus seeded random starts;
+     plus seeded random starts, and seeded random forests at the walk's
+     edges (1, 20 and 32 trees, depth 1 and 10, flips, a walker count
+     that is no multiple of a block's walkers), upright and rotated;
   3. main path — FaceCascade on the card in each mode (default,
      prefix=True, tree_cap=32, both): detections and clusters against
      tests/golden/sample_dense.json and tests/golden/sample.json, upright
@@ -81,10 +86,8 @@ MODES = {
 # holds its frozen faces, eyes and points) and the 1080p tiling's.
 GOLDEN_TAG = "sample"
 DET_HD = dict(min_size=40, max_size=1080, shift_factor=0.1, scale_factor=1.1)
-DET_IOU = 0.1
 DET_DEPTH = 4
 RANDOM_GROUPS = 8  # seeded random walk groups beside the real anchors
-NEVER_FAIL = -1e4  # a threshold no facefinder running sum reaches
 # H100 SXM published peaks (NVIDIA data sheet, at a 700 W power limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -176,7 +179,7 @@ def phase_kernel(gray, hd, forest, card) -> dict:
     from pigo_tpu_torch.models.face import angle_index
     from pigo_tpu_torch.ops import face_cuda, face_dense
     from pigo_tpu_torch.ops.windows import build_window_plan
-    from pigo_tpu_torch.tools.face_sweep import worklist_max
+    from pigo_tpu_torch.tools.face_sweep import NEVER_FAIL, worklist_max
     from pigo_tpu_torch.utils.device import cuda_ms
 
     dev = forest.codes.device
@@ -191,13 +194,21 @@ def phase_kernel(gray, hd, forest, card) -> dict:
     # the facefinder's codes and leaves with thresholds that never fail
     # (its sums stay within a few units of 0), and a seeded random forest
     never = (f.codes, f.preds, torch.full_like(f.thresh, NEVER_FAIL))
-    leaves = 64
-    codes = rng.integers(-128, 128, (80, leaves, 4)).astype(np.int8)
-    codes[:, 0] = 0
-    rand = tuple(torch.from_numpy(x).to(dev) for x in (
-        codes, rng.uniform(-1.0, 1.0, (80, leaves)).astype(np.float32),
-        np.full(80, -1.5, np.float32)))
-    phase1_trees, block_threads = face_cuda.schedule()
+
+    def random_forest(depth, trees):
+        leaves = 1 << depth
+        codes = rng.integers(-128, 128, (trees, leaves, 4)).astype(np.int8)
+        codes[:, 0] = 0
+        return tuple(torch.from_numpy(x).to(dev) for x in (
+            codes, rng.uniform(-1.0, 1.0, (trees, leaves)).astype(np.float32),
+            np.full(trees, -1.5, np.float32)))
+
+    rand = random_forest(6, 80)
+    rand8 = random_forest(8, 40)
+    sched = face_cuda.schedule()
+    phase1_trees, block_windows = sched["face_cascade"][:2]
+    b_trees, b_windows = sched["face_prefix"][:2]
+    stats["schedule"] = {k: v._asdict() for k, v in sched.items()}
 
     def compare(kernel, name, got, want, what):
         torch.cuda.synchronize()
@@ -282,6 +293,26 @@ def phase_kernel(gray, hd, forest, card) -> dict:
                 "face_cascade at the full forest on the prefix marks, "
                 f"untouched elsewhere, angle_idx {a}")
 
+        # Kernel B's schedule edges (csrc/face_prefix.cu) over the tail
+        # windows: tree limits 1 (phase 1 only), 32 (one round), 33 and 64
+        # (a second round) on a never-failing forest (every window of every
+        # block on the worklist) and a random depth-6 one, and a random
+        # depth-8 forest (256 leaves a tree) at the limits its tables fit.
+        for label, tabs, limits in (("never_fail", never, (1, 32, 33, 64)),
+                                    ("random_d6_t80", rand, (1, 32, 33, 64)),
+                                    ("random_d8_t40", rand8, (1, 23))):
+            for a in (0, rot):
+                for t_limit in limits:
+                    qb = launched("face_prefix_launches",
+                                  lambda: face_cuda.face_prefix(
+                                      ft, pb, ps, *tabs, t_limit,
+                                      angle_idx=a))
+                    compare("face_prefix", name, qb,
+                            face_dense.classify_windows(
+                                ft, pb, ps, *tabs, t_limit, angle_idx=a),
+                            f"classify_windows, {label}, t_limit {t_limit}, "
+                            f"angle_idx {a}")
+
         # The two-phase schedule's edges (csrc/face_cascade.cu): a forest
         # whose thresholds never fail (every window of every block goes to
         # the worklist), tree limits that are not multiples of 32, and a
@@ -335,19 +366,25 @@ def phase_kernel(gray, hd, forest, card) -> dict:
         # tree, each block's whole worklist in phase 2.
         all_survive_ms = cuda_ms(lambda: face_cuda.face_cascade(
             one, base, scale, *never, t_num), 5, True)
-        # Phase 2's worklists: per block of block_threads windows, those
+        # Phase 2's worklists: per block of block_windows windows, those
         # alive after phase1_trees trees (the cascade) or marked (the
         # finish of the prefix marks, upright).
         alive_k = face_dense.classify_windows(one, base, scale, *tables,
                                               phase1_trees) != -1.0
         marks_b = face_dense.classify_windows(one, pb, ps, *tables,
                                               seg.t_limit) == mark
+        alive_b = face_dense.classify_windows(one, pb, ps, *tables,
+                                              b_trees) != -1.0
         worklist = dict(phase1_trees=phase1_trees,
-                        block_threads=block_threads,
-                        cascade_max=worklist_max(alive_k, block_threads),
+                        block_windows=block_windows,
+                        cascade_max=worklist_max(alive_k, block_windows),
                         cascade_windows=int(alive_k.sum()),
-                        finish_max=worklist_max(marks_b, block_threads),
-                        finish_windows=int(marks_b.sum()))
+                        finish_max=worklist_max(marks_b, block_windows),
+                        finish_windows=int(marks_b.sum()),
+                        prefix_phase1_trees=b_trees,
+                        prefix_block_windows=b_windows,
+                        prefix_max=worklist_max(alive_b, b_windows),
+                        prefix_windows=int(alive_b.sum()))
         emit("kernel_worklist", shape=name, **worklist)
         w = plan.num_windows
         # Bytes the function must move (`bound`) with the f32 scores
@@ -379,8 +416,12 @@ def phase_kernel(gray, hd, forest, card) -> dict:
         # overwrites the marks it is given).
         wb = seg.hi - seg.lo
         bargs = (one, pb, ps, *tables, seg.t_limit)
-        shape["prefix"] = {"scales": int(routed.prefix.sum()), "windows": wb,
-                           "t_limit": seg.t_limit}
+        shape["prefix"] = {
+            "scales": int(routed.prefix.sum()), "windows": wb,
+            "t_limit": seg.t_limit,
+            # every tail window walks all t_limit trees (worst case)
+            "all_survive_ms": cuda_ms(lambda: face_cuda.face_prefix(
+                one, pb, ps, *never, seg.t_limit), 50, True)}
         shape["finish"] = {}
         for label, a in (("upright", 0), ("rotated", rot)):
             b_plain_ms, qm, work = plain_with_work(
@@ -418,78 +459,57 @@ def phase_kernel(gray, hd, forest, card) -> dict:
     return stats
 
 
-def _walk_inputs(anchors, casc_id, flips, u, dev):
-    """Walker inputs (casc_id, r0, c0, s0, col_sign) [G*P] on dev for G
-    groups of P perturbations, as the main path makes them: anchors
-    [G, 3] (row, col, scale), casc_id [G], flips [G], u [G, P, 3]."""
-    import torch
-
-    from pigo_tpu_torch.ops import pupil_dense
-
-    a = torch.as_tensor(anchors, dtype=torch.float32, device=dev)
-    return pupil_dense.walker_starts(
-        torch.as_tensor(casc_id, device=dev), a[:, 0], a[:, 1], a[:, 2],
-        torch.as_tensor(flips, device=dev),
-        torch.as_tensor(u, dtype=torch.float32, device=dev))
-
-
 def phase_pupil_kernel(frames, det, card) -> dict:
     """pupil_walk against the plain walk, bitwise on (r, c, s), for the
     walks the main path makes on each frame (eyes, then the 15 landmark
     points anchored on the eyes' medians) and for rotated eyes, each with
     RANDOM_GROUPS seeded random groups besides; then the kernel's and the
-    plain version's times on the main path's walks alone, and the bound."""
+    plain version's times on the main path's walks alone, and the bound;
+    then seeded random forests at the walk's edges."""
     import torch
 
-    from pigo_tpu_torch.detector import (MIN_EYE_FACE_SCALE, Q_THRESH,
-                                         CascadeParams, eye_anchors,
-                                         landmark_anchors)
     from pigo_tpu_torch.ops import pupil_cuda, pupil_dense
+    from pigo_tpu_torch.tools.face_sweep import post_walks, walker_inputs
     from pigo_tpu_torch.utils.device import cuda_ms
 
     dev = det.device
     rng = np.random.default_rng(SEED)
     stats = {"max_abs_err": 0.0, "shapes": {}}
-    pt, lt = det.pupil.tensors, det.landmarks.tensors
+
+    def compare(t, walkers, pix, kw, what):
+        before = pupil_cuda.pupil_walk_launches
+        got = pupil_cuda.pupil_walk(t.codes, t.preds, *walkers, pix, **kw)
+        launches = pupil_cuda.pupil_walk_launches - before
+        want = pupil_dense.walk(t.codes, t.preds, *walkers, pix, **kw)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, want))
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        check(launches == 1, f"{launches} pupil_walk launches for one walk")
+        check(equal, f"pupil_walk != plain walk: {what}")
+        return launches, equal, err
+
     for name, frame, params in frames:
         rows, cols = frame.shape
-        pix = torch.from_numpy(np.ascontiguousarray(frame).reshape(-1)).to(dev)
-        faces = [d for d in det.detect_faces(
-            frame, rows, cols, CascadeParams(**params), iou_threshold=DET_IOU)
-            if d.q > Q_THRESH and d.scale > MIN_EYE_FACE_SCALE]
+        faces, pix, walks = post_walks(det, frame, params, rng)
         f = len(faces)
         check(f >= 1, f"{name}: no qualifying face")
-        u_eyes = rng.random((2 * f, 63, 3), dtype=np.float32)
-        real_eyes = _walk_inputs(eye_anchors(faces),
-                                 np.zeros(2 * f, np.int32),
-                                 np.zeros(2 * f, bool), u_eyes, dev)
+        pt, real_eyes = walks["eyes"]
+        lt, real_lmk = walks["landmarks"]
         kw = dict(nrows=rows, ncols=cols, dim=cols)
-        er, ec, es = pupil_cuda.pupil_walk(pt.codes, pt.preds, *real_eyes,
-                                           pix, **kw,
-                                           scale_mult=pt.scale_mult)
-        eyes = torch.stack(pupil_dense.median_vote(
-            er.reshape(2 * f, 63), ec.reshape(2 * f, 63),
-            es.reshape(2 * f, 63), 63))
-        arow, acol, ascale = landmark_anchors(eyes)
-        cids, flips = det.landmarks.schedule_arrays(f)
-        npts = len(det.landmarks.point_schedule)
-        lmk_anchors = torch.stack([arow, acol, ascale], 1).repeat_interleave(
-            npts, 0).cpu().numpy()
-        real_lmk = _walk_inputs(lmk_anchors, cids, flips,
-                                rng.random((f * npts, 63, 3),
-                                           dtype=np.float32), dev)
 
         def random_groups(smin, smax, n_casc, flip):
             g = RANDOM_GROUPS
             anchors = np.stack([rng.uniform(0, rows, g),
                                 rng.uniform(0, cols, g),
                                 rng.uniform(smin, smax, g)], 1)
-            return _walk_inputs(
+            return walker_inputs(
                 anchors.astype(np.float32), rng.integers(0, n_casc, g),
                 (rng.random(g) < 0.5) & flip,
                 rng.random((g, 63, 3), dtype=np.float32), dev)
 
-        walks = (
+        checks = (
             ("eyes", pt, real_eyes, random_groups(8, 80, 1, False), False),
             ("landmarks", lt, real_lmk,
              random_groups(30, 300, lt.codes.shape[0], True), False),
@@ -497,23 +517,14 @@ def phase_pupil_kernel(frames, det, card) -> dict:
              True),
         )
         shape = {"faces": f}
-        for kind, t, real, extra, rotated in walks:
+        for kind, t, real, extra, rotated in checks:
             wkw = dict(kw, scale_mult=t.scale_mult, rotated=rotated,
                        angle_idx=pupil_dense.angle_index(0.25)
                        if rotated else 0)
             both = [torch.cat([a, b]).contiguous()
                     for a, b in zip(real, extra)]
-            before = pupil_cuda.pupil_walk_launches
-            got = pupil_cuda.pupil_walk(t.codes, t.preds, *both, pix, **wkw)
-            launches = pupil_cuda.pupil_walk_launches - before
-            want = pupil_dense.walk(t.codes, t.preds, *both, pix, **wkw)
-            torch.cuda.synchronize()
-            equal = all(torch.equal(a, b) for a, b in zip(got, want))
-            err = max(float((a.double() - b.double()).abs().max())
-                      for a, b in zip(got, want))
-            stats["max_abs_err"] = max(stats["max_abs_err"], err)
-            check(launches == 1, f"{launches} pupil_walk launches for one walk")
-            check(equal, f"pupil_walk != plain walk: {name} {kind}")
+            launches, equal, err = compare(t, both, pix, wkw,
+                                           f"{name} {kind}")
 
             # times and bound on the main path's walkers alone
             args = (t.codes, t.preds, *real, pix)
@@ -546,6 +557,45 @@ def phase_pupil_kernel(frames, det, card) -> dict:
             emit("pupil_kernel", frame=name, rows=rows, cols=cols, faces=f,
                  walk=kind, card=card, **shape[kind])
         stats["shapes"][name] = shape
+
+    # The walk's edges on seeded random forests over the first frame: one
+    # lane's tree, 20 and a full warp's 32 trees a stage; depth 1 (the root
+    # is the last level) and 10; flipped walkers; a walker count that is no
+    # multiple of a block's walkers; upright and rotated.
+    from pigo_tpu_torch.convert import pupil_forest_from_numpy
+
+    name, frame, _ = frames[0]
+    rows, cols = frame.shape
+    pix = torch.from_numpy(np.ascontiguousarray(frame).reshape(-1)).to(dev)
+    warps = pupil_cuda.schedule()
+    n = 7 * warps * 4 + 3
+    edges = []
+    for trees in (1, 20, 32):
+        for depth in (1, 10):
+            nc, stages, leaves = 3, 4, 1 << depth
+            codes = rng.integers(-128, 128, (nc, stages, trees, leaves, 4),
+                                 dtype=np.int8)
+            preds = rng.uniform(-0.3, 0.3, (nc, stages, trees, leaves, 2)
+                                ).astype(np.float32)
+            t = pupil_forest_from_numpy(codes, preds, stages=stages,
+                                        trees=trees, depth=depth,
+                                        scale_mult=0.9, device=dev)
+            walkers = [torch.from_numpy(a).to(dev) for a in (
+                rng.integers(0, nc, n).astype(np.int32),
+                rng.uniform(0, rows, n).astype(np.float32),
+                rng.uniform(0, cols, n).astype(np.float32),
+                rng.uniform(8, 200, n).astype(np.float32),
+                np.where(rng.random(n) < 0.5, -1, 1).astype(np.int32))]
+            for a in (0, 8):
+                wkw = dict(nrows=rows, ncols=cols, dim=cols, scale_mult=0.9,
+                           rotated=a > 0, angle_idx=a)
+                compare(t, walkers, pix, wkw,
+                        f"random forest, {trees} trees, depth {depth}, "
+                        f"angle_idx {a}")
+                edges.append([trees, depth, a])
+    emit("pupil_kernel_edges", frame=name, walkers=n,
+         warps_per_block=warps, cases=edges, bitwise_equal=True)
+    stats["warps_per_block"] = warps
     return stats
 
 
@@ -970,6 +1020,7 @@ def main() -> int:
                  "(upright at T and 32 trees, rotated at T; the facefinder "
                  "at 36 and 100 trees, a never-failing forest and a random "
                  "80-tree forest, upright and rotated)",
+        "schedule": kstats["schedule"]["face_cascade"],
         "survivors_only_ms": head["survivors_only_ms"],
         "all_survive_ms": head["all_survive_ms"],
         "worklist": head["worklist"],
@@ -986,9 +1037,15 @@ def main() -> int:
         **pick(head["prefix"]["upright"]),
         "library_ms": None,
         "check": "bitwise equal to ops/face_dense.classify_windows at "
-                 "t_limit 32 over the tail scales (upright and rotated)",
+                 "t_limit 32 over the tail scales (upright and rotated), "
+                 "and at 1, 32, 33 and 64 trees on a never-failing and a "
+                 "random forest and at 1 and 23 on a random depth-8 one",
         "ms_is": "the headline's 22 tail scales, upright",
+        "schedule": kstats["schedule"]["face_prefix"],
         "survivors": head["prefix"]["upright"]["survivors"],
+        "all_survive_ms": head["prefix"]["all_survive_ms"],
+        "worklist_max": {k: v["worklist"]["prefix_max"]
+                         for k, v in shapes.items()},
         "per_shape": {k: {a: pick(v["prefix"][a], TIME_KEYS + ("survivors",))
                           for a in ("upright", "rotated")}
                       for k, v in shapes.items()},
@@ -1007,6 +1064,7 @@ def main() -> int:
         "check": "bitwise equal to ops/face_dense.finish_marked, and to "
                  "face_cascade at the full forest on every mark",
         "ms_is": "the marks of the headline's prefix pass, upright",
+        "schedule": kstats["schedule"]["face_cascade"],
         "per_shape": {k: {a: pick(v["finish"][a], TIME_KEYS + ("marks",))
                           for a in ("upright", "rotated")}
                       for k, v in shapes.items()},
@@ -1023,7 +1081,10 @@ def main() -> int:
         "bound_by": ("bytes" if all(w["bound_by"] == "bytes" for w in post)
                      else "operations"),
         "library_ms": None,
-        "check": "bitwise equal to ops/pupil_dense.walk on (r, c, s)",
+        "check": "bitwise equal to ops/pupil_dense.walk on (r, c, s), and "
+                 "on random forests of 1, 20 and 32 trees at depth 1 and "
+                 "10, upright and rotated",
+        "schedule": {"warps_per_block": pstats["warps_per_block"]},
         "ms_is": "the two launches of the sample frame's post stage "
                  "(eyes, then landmarks)",
         "per_walk": {

@@ -63,7 +63,8 @@ class PupilTensors:
     codes int8 [NC, S, T, L, 4] node (r1, c1, r2, c2) offsets (slot L-1 of
     each tree is the zero pad), preds f32 [NC, S, T, L, 2] leaf (dr, dc);
     S stages of T trees of depth log2(L); each stage multiplies the walk's
-    scale by scale_mult."""
+    scale by scale_mult. On a CUDA device codes is the card copy of
+    `card_codes`."""
 
     codes: torch.Tensor
     preds: torch.Tensor
@@ -109,8 +110,24 @@ def pupil_forest_from_numpy(codes, preds, *, stages, trees, depth,
             f"([(NC,) {stages}, {trees}, {leaves}, 2] or flat); got "
             f"{preds.dtype} {preds.shape}")
     preds = preds.reshape(nc, *geometry, 2)
+    codes = torch.from_numpy(np.ascontiguousarray(codes).copy())
+    if torch.device(device).type == "cuda":
+        codes = card_codes(codes, device)
     return PupilTensors(
-        codes=torch.from_numpy(np.ascontiguousarray(codes).copy()).to(device),
+        codes=codes.to(device),
         preds=torch.from_numpy(np.ascontiguousarray(preds).copy()).to(device),
         scale_mult=float(np.float32(scale_mult)),
     )
+
+
+def card_codes(codes: torch.Tensor,
+               device: str | torch.device) -> torch.Tensor:
+    """A copy of pupil codes int8 [..., L, 4] on `device`, stored one code
+    word into a buffer that starts 8-byte aligned: the card's layout of the
+    walk kernel (csrc/pupil_walk.cu). Read from the word before it, node k
+    of each tree sits at 1-based slot k + 1, so the children of 1-based node
+    j (2j and 2j + 1) are one aligned 8-byte word. The tensor itself is the
+    usual 0-based layout, which the plain walk reads."""
+    buf = torch.zeros(codes.numel() + 4, dtype=torch.int8, device=device)
+    buf[4:] = codes.reshape(-1)
+    return buf[4:].view(codes.shape)

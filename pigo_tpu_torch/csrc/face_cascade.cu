@@ -73,11 +73,14 @@
 // windows on the worklists, longer lengthens every survivor's chain;
 // smaller blocks leave a block's long walkers fewer warps to share.
 //
-// Tables stay in global memory, read through the read-only path (__ldg):
-// codes plus preds (about 240 KB for the facefinder forest) exceed the
-// 227 KB of shared memory a block may have (the 32-tree prefix kernel,
-// face_prefix.cu, stages its tables in shared memory). The wrapper checks
-// that codes are 8-byte aligned for the paired code-word loads.
+// The schedule itself (pigo::classify_block, survives_warp) lives in
+// face_walk.cuh, templated on where the tables live: kernel B
+// (face_prefix.cu) runs it with its trees staged in shared memory, with
+// its own constants. Here the tables stay in global memory, read through
+// the read-only path (__ldg, pigo::GlobalForest): codes plus preds (about
+// 240 KB for the facefinder forest) exceed the 227 KB of shared memory a
+// block may have. The wrapper checks that codes are 8-byte aligned for the
+// paired code-word loads.
 //
 // Upright node offsets do not depend on the window:
 //   ((r*256 + code*s) >> 8) == r + ((code*s) >> 8)   (>> is a floor shift)
@@ -91,205 +94,56 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr unsigned kFullMask = 0xffffffffu;
 // Trees each window walks alone (phase 1) before a survivor goes to a warp.
 constexpr int kPhase1Trees = 4;
-// A longer worklist goes on a thread per window (see the note above).
-constexpr int kDenseItems = 7 * kThreads / 8;
+// A worklist longer than kDenseEighths / 8 of the block goes on a thread
+// per window (see the note above).
+constexpr int kDenseEighths = 7;
+constexpr int kDenseItems = kDenseEighths * kThreads / 8;
 
+// The kernel's arguments as one parameter. Passed as four (windows,
+// forest, t_limit, last_thresh) they gave the same instructions in every
+// loop, but the compiler allocated the registers otherwise, and the
+// all-survive case (every block on its dense fallback) ran 16% slower at
+// the headline on an H100 (pigo_tpu_torch/tools/face_sweep.py, PERF.md).
 struct Launch {
-  const uint8_t* frames;  // [n_frames, nrows, dim]
-  long long frame_pixels;
-  int nrows, dim, cols;
-  const int* base;    // [n_windows] r*cols + c
-  const int* scale;   // [n_windows]
-  long long n_windows, n_total;
-  const char4* codes;  // [n_trees, 1 << depth] (r1, c1, r2, c2)
-  const float* preds;  // [n_trees, 1 << depth]
-  const float* thresh; // [n_trees]
-  int depth, n_trees, t_limit, qcos, qsin;
-  float* out;           // [n_frames, out_stride], the range's first column
-  long long out_stride;
+  pigo::Windows p;
+  pigo::GlobalForest f;
+  int t_limit;
+  const float* last_thresh;  // null: survivors get PREFIX_MARK
 };
-
-// Window i (frame-major over the range) of the launch.
-struct Window {
-  float* q;  // its score
-  pigo::WindowArgs args;
-};
-
-__device__ __forceinline__ Window window(const Launch& p, long long i) {
-  const long long f = i / p.n_windows;
-  const long long w = i - f * p.n_windows;
-  return Window{p.out + f * p.out_stride + w,
-                pigo::WindowArgs{p.frames + f * p.frame_pixels,
-                                 __ldg(p.base + w), p.cols, p.dim, p.nrows,
-                                 __ldg(p.scale + w), p.qcos, p.qsin}};
-}
-
-// The score of a window that survived all t_limit trees with sum `sum`.
-__device__ __forceinline__ float survivor_score(const Launch& p, float sum) {
-  return p.t_limit < p.n_trees ? pigo::kPrefixMark
-                               : sum - __ldg(p.thresh + p.n_trees - 1);
-}
-
-// Walks trees [t_start, t_limit) of one window with the whole warp (every
-// lane calls it with the same window and sum), 32 trees a round: lane l
-// walks tree t0 + l to its leaf (lanes past t_limit walk the last tree
-// again; their leaves are never added), loading both children's code words
-// as one 8-byte pair (nodes 2 idx and 2 idx + 1) beside the node's pixel
-// pair, so that a level waits on the pixels alone. Then every lane forms
-// the same running sum over the round's leaves in tree order, one
-// __shfl_sync and one __fadd_rn a tree, and keeps the sum after its own
-// tree; one ballot says whether any of them is <= its tree's threshold.
-// These are the sums of the sequential walk, so the window fails here
-// exactly when it fails there. True when it survives, with the sum in
-// *sum.
-template <class Read>
-__device__ __forceinline__ bool survives_warp(const Read& read,
-                                              const Launch& p, int t_start,
-                                              float* sum) {
-  const int lane = threadIdx.x & 31;
-  const int leaves = 1 << p.depth;
-  float acc = *sum;
-  for (int t0 = t_start; t0 < p.t_limit; t0 += 32) {
-    const int t = min(t0 + lane, p.t_limit - 1);
-    const char4* node = p.codes + t * leaves;
-    int idx = 1;
-    char4 code = __ldg(node + 1);
-    for (int d = 0; d < p.depth; ++d) {
-      int2 kids = make_int2(0, 0);
-      if (d + 1 < p.depth) {
-        kids = __ldg(reinterpret_cast<const int2*>(node) + idx);
-      }
-      const bool right = read(code.x, code.y) <= read(code.z, code.w);
-      idx = 2 * idx + (right ? 1 : 0);
-      const int k = right ? kids.y : kids.x;
-      code = make_char4((signed char)k, (signed char)(k >> 8),
-                        (signed char)(k >> 16), (signed char)(k >> 24));
-    }
-    const float leaf = __ldg(p.preds + t * leaves + (idx - leaves));
-    const int m = min(32, p.t_limit - t0);  // the round's trees
-    float run = acc, mine = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float v = __shfl_sync(kFullMask, leaf, j);
-      if (j < m) run = __fadd_rn(run, v);
-      mine = lane == j ? run : mine;
-    }
-    if (__ballot_sync(kFullMask, lane < m && mine <= __ldg(p.thresh + t))) {
-      return false;
-    }
-    acc = run;
-  }
-  *sum = acc;
-  return true;
-}
 
 template <bool kRotated, bool kFinish>
 __global__ void __launch_bounds__(kThreads)
-    face_cascade_kernel(const Launch p) {
-  __shared__ int s_item[kThreads];   // worklist: the window's thread index
-  __shared__ float s_sum[kThreads];  // and its sum after phase 1
-  __shared__ int s_count, s_next;
-  if (threadIdx.x == 0) {
-    s_count = 0;
-    s_next = 0;
-  }
-  __syncthreads();
-
-  // Phase 1: a thread per window. No thread returns before the barrier
-  // below, neither one past n_total nor a finish thread without a mark.
-  const long long first = blockIdx.x * (long long)kThreads;
-  const long long i = first + threadIdx.x;
-  const int t_start = kFinish ? 0 : min(kPhase1Trees, p.t_limit);
-  float sum = 0.0f;
-  bool queued = false;
-  Window win;
-  if (i < p.n_total) {
-    win = window(p, i);
-    if (kFinish) {
-      queued = *win.q == pigo::kPrefixMark;
-    } else {
-      const pigo::Reader<kRotated> read(win.args);
-      if (!pigo::survives<true>(read, p.codes, p.preds, p.thresh, p.depth,
-                                t_start, &sum)) {
-        *win.q = -1.0f;
-      } else if (t_start == p.t_limit) {
-        *win.q = survivor_score(p, sum);
-      } else {
-        queued = true;
-      }
-    }
-    if (queued) {
-      const int slot = atomicAdd(&s_count, 1);
-      s_item[slot] = threadIdx.x;
-      s_sum[slot] = sum;
-    }
-  }
-  __syncthreads();
-
-  const int n_items = s_count;
-  if (n_items > kDenseItems) {
-    // a dense worklist: each window goes on in its own thread
-    if (queued) {
-      const pigo::Reader<kRotated> read(win.args);
-      const int leaves = 1 << p.depth;
-      bool alive = true;
-      for (int t = t_start; alive && t < p.t_limit; ++t) {
-        const int idx =
-            pigo::leaf_slot<true>(read, p.codes + t * leaves, p.depth);
-        sum += __ldg(p.preds + t * leaves + (idx - leaves));
-        alive = !(sum <= __ldg(p.thresh + t));
-      }
-      *win.q = alive ? survivor_score(p, sum) : -1.0f;
-    }
-    return;
-  }
-
-  // Phase 2: a warp per worklist entry, taken in turn.
-  for (;;) {
-    int e = 0;
-    if ((threadIdx.x & 31) == 0) e = atomicAdd(&s_next, 1);
-    e = __shfl_sync(kFullMask, e, 0);
-    if (e >= n_items) break;
-    const Window item = window(p, first + s_item[e]);
-    const pigo::Reader<kRotated> read(item.args);
-    float acc = s_sum[e];
-    const bool alive = survives_warp(read, p, t_start, &acc);
-    if ((threadIdx.x & 31) == 0) {
-      *item.q = alive ? survivor_score(p, acc) : -1.0f;
-    }
-  }
+    face_cascade_kernel(const Launch l) {
+  pigo::classify_block<kThreads, kThreads, kPhase1Trees, kDenseItems,
+                       kRotated, kFinish>(l.p, l.f, l.t_limit,
+                                          l.last_thresh);
 }
 
 template <bool kFinish>
-int launch(const Launch& p, int rotated, cudaStream_t stream) {
+int launch(const pigo::Windows& p, const pigo::GlobalForest& f, int t_limit,
+           int n_trees, int rotated, cudaStream_t stream) {
   if (p.n_total == 0) return 0;
   const long long blocks = (p.n_total + kThreads - 1) / kThreads;
+  // survivors of the whole forest get sum - thresh[T-1], others the mark
+  const Launch l{p, f, t_limit,
+                 t_limit < n_trees ? nullptr : f.thresh + n_trees - 1};
   if (rotated) {
     face_cascade_kernel<true, kFinish><<<(unsigned)blocks, kThreads, 0,
-                                         stream>>>(p);
+                                         stream>>>(l);
   } else {
     face_cascade_kernel<false, kFinish><<<(unsigned)blocks, kThreads, 0,
-                                          stream>>>(p);
+                                          stream>>>(l);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-Launch make_launch(const void* frames, long long n_frames, int nrows,
-                   int dim, int cols, const void* base, const void* scale,
-                   long long n_windows, const void* codes, const void* preds,
-                   const void* thresh, int depth, int n_trees, int t_limit,
-                   int qcos, int qsin, void* out, long long out_stride) {
-  return Launch{static_cast<const uint8_t*>(frames),
-                (long long)nrows * dim, nrows, dim, cols,
-                static_cast<const int*>(base), static_cast<const int*>(scale),
-                n_windows, n_frames * n_windows,
-                static_cast<const char4*>(codes),
-                static_cast<const float*>(preds),
-                static_cast<const float*>(thresh), depth, n_trees, t_limit,
-                qcos, qsin, static_cast<float*>(out), out_stride};
+pigo::GlobalForest forest(const void* codes, const void* preds,
+                          const void* thresh, int depth) {
+  return pigo::GlobalForest{static_cast<const char4*>(codes),
+                            static_cast<const float*>(preds),
+                            static_cast<const float*>(thresh), depth};
 }
 
 }  // namespace
@@ -305,10 +159,10 @@ extern "C" int pigo_face_cascade(
     int n_trees, int t_limit, int rotated, int qcos, int qsin, void* out,
     long long out_stride, void* stream) {
   return launch<false>(
-      make_launch(frames, n_frames, nrows, dim, cols, base, scale, n_windows,
-                  codes, preds, thresh, depth, n_trees, t_limit, qcos, qsin,
-                  out, out_stride),
-      rotated, static_cast<cudaStream_t>(stream));
+      pigo::make_windows(frames, n_frames, nrows, dim, cols, base, scale,
+                         n_windows, qcos, qsin, out, out_stride),
+      forest(codes, preds, thresh, depth), t_limit, n_trees, rotated,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pigo_face_finish(
@@ -318,18 +172,25 @@ extern "C" int pigo_face_finish(
     int n_trees, int rotated, int qcos, int qsin, void* scores,
     long long out_stride, void* stream) {
   return launch<true>(
-      make_launch(frames, n_frames, nrows, dim, cols, base, scale, n_windows,
-                  codes, preds, thresh, depth, n_trees, n_trees, qcos, qsin,
-                  scores, out_stride),
-      rotated, static_cast<cudaStream_t>(stream));
+      pigo::make_windows(frames, n_frames, nrows, dim, cols, base, scale,
+                         n_windows, qcos, qsin, scores, out_stride),
+      forest(codes, preds, thresh, depth), n_trees, n_trees, rotated,
+      static_cast<cudaStream_t>(stream));
 }
 
-// The two-phase schedule's constants: out[0] = the trees a window walks
-// alone (phase 1), out[1] = the windows (threads) of a block, which bound
-// a block's worklist.
+// The schedule's constants of kernel A and the finish: out[0] = the trees a
+// window walks alone (phase 1), out[1] = the windows of a block, which
+// bound a block's worklist, out[2] = its threads, out[3] = the longest
+// worklist walked a warp per entry. Kernel B's follow at out[4..7]
+// (face_prefix.cu).
+extern "C" void pigo_prefix_schedule(int* out);
+
 extern "C" void pigo_face_schedule(int* out) {
   out[0] = kPhase1Trees;
   out[1] = kThreads;
+  out[2] = kThreads;
+  out[3] = kDenseItems;
+  pigo_prefix_schedule(out + 4);
 }
 
 extern "C" const char* pigo_cuda_error_string(int code) {

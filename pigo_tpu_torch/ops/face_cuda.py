@@ -7,8 +7,8 @@ one library (csrc/face_cascade.cu and csrc/face_prefix.cu, built together):
     over a range of windows, -1 / PREFIX_MARK / final score;
   - `face_prefix` (csrc/face_prefix.cu) is the port of
     face_pallas.py::_multi_kernel_body: the first PREFIX_TREES trees over
-    the tail scales' windows with the trees staged in shared memory,
-    -1 / PREFIX_MARK;
+    the tail scales' windows, on face_cascade's two-phase schedule with
+    the trees staged (swizzled) in shared memory, -1 / PREFIX_MARK;
   - `face_finish` (csrc/face_cascade.cu) finishes every PREFIX_MARK
     window exactly, in place, where the JAX package finishes them on the
     host (`_resolve_marked`) or with its opt-in device resolver
@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -156,14 +157,23 @@ def load_kernel() -> ctypes.CDLL:
     return build.load("face_cascade", _bind)
 
 
-def schedule(lib: ctypes.CDLL | None = None) -> tuple[int, int]:
-    """The two-phase schedule of `face_cascade` and `face_finish`
-    (csrc/face_cascade.cu): (trees a window walks alone before a survivor
-    goes to a warp, windows of a block). From the built library (`lib`, or
-    the one load_kernel builds)."""
-    out = (ctypes.c_int * 2)()
+class Schedule(NamedTuple):
+    """One kernel's two-phase schedule (csrc/face_walk.cuh)."""
+
+    phase1_trees: int  # trees a window walks alone before it goes to a warp
+    block_windows: int  # windows of a block, which bound its worklist
+    block_threads: int  # threads of a block: its warps share the worklist
+    dense_items: int  # the longest worklist walked a warp per entry
+
+
+def schedule(lib: ctypes.CDLL | None = None) -> dict[str, Schedule]:
+    """The schedules of "face_cascade" (with `face_finish`) and of
+    "face_prefix", from the built library (`lib`, or the one load_kernel
+    builds)."""
+    out = (ctypes.c_int * 8)()
     (lib or load_kernel()).pigo_face_schedule(out)
-    return out[0], out[1]
+    return {"face_cascade": Schedule(*out[:4]),
+            "face_prefix": Schedule(*out[4:])}
 
 
 def prefix_smem_bytes(t_limit: int, leaves: int) -> int:

@@ -4,7 +4,10 @@
 (the kernel is csrc/pupil_walk.cu). Where the TPU path launched one kernel
 per stage over image patches and re-ran walk groups whose probes left
 their patch, here one launch runs every stage of every walker against the
-whole frame, so there is no patch, overflow flag or retry.
+whole frame, so there is no patch, overflow flag or retry. On the card the
+kernel reads the codes through the 1-based layout of
+`convert.card_codes`, which `convert.pupil_forest_from_numpy` gives every
+CUDA forest.
 
 On a CPU tensor the wrapper runs the plain version (ops/pupil_dense.py);
 on a CUDA tensor it launches the kernel or raises.
@@ -37,11 +40,21 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     lib.pigo_cuda_error_string.restype = ctypes.c_char_p
     lib.pigo_cuda_error_string.argtypes = [i]
+    lib.pigo_pupil_schedule.restype = None
+    lib.pigo_pupil_schedule.argtypes = [ctypes.POINTER(i)]
 
 
 def load_kernel() -> ctypes.CDLL:
     """Build (at first use) and bind the kernel library."""
     return build.load("pupil_walk", _bind)
+
+
+def schedule(lib: ctypes.CDLL | None = None) -> int:
+    """The walkers (warps) of one block of the walk kernel, from the built
+    library (`lib`, or the one load_kernel builds)."""
+    out = (ctypes.c_int * 1)()
+    (lib or load_kernel()).pigo_pupil_schedule(out)
+    return out[0]
 
 
 def check_cascade_ids(casc_id: torch.Tensor, nc: int) -> None:
@@ -109,9 +122,11 @@ def pupil_walk(codes, preds, casc_id, r0, c0, s0, col_sign, pixels, *,
             rotated=rotated, angle_idx=angle_idx)
     if dev.type != "cuda":
         raise ValueError(f"pupil_walk runs on cuda or cpu, not {dev}")
-    if codes.data_ptr() % 4 or preds.data_ptr() % 8:
-        raise ValueError("codes must be 4-byte aligned (read as char4) and "
-                         "preds 8-byte aligned (read as float2)")
+    if codes.data_ptr() % 8 != 4 or preds.data_ptr() % 16:
+        raise ValueError(
+            "codes must be the card copy of convert.card_codes (one word "
+            "past an 8-byte boundary, read as aligned pairs from the word "
+            "before) and preds 16-byte aligned (read as leaf pairs)")
     n = r0.shape[0]
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     if n == 0:

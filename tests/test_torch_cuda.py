@@ -181,6 +181,57 @@ def test_cascade_schedule_edges_on_card(cuda_device, gray, forest_kind):
                                                         before[1] + 1)
 
 
+@pytest.mark.parametrize("forest_kind", ["never_fail", "random_d6_t80",
+                                         "random_d8_t40"])
+def test_prefix_schedule_edges_on_card(cuda_device, gray, forest_kind):
+    """Kernel B's two-phase schedule (csrc/face_prefix.cu) at its edges,
+    bit-equal to the plain version over the headline's tail scales,
+    upright and rotated: tree limits 1 (phase 1 alone), 32 (one round), 33
+    and 64 (a second round), on the facefinder with thresholds that never
+    fail (every window of every block on the worklist) and on a random
+    depth-6 forest; a random depth-8 forest (256 swizzled slots a tree) at
+    1 and 23 trees, the most whose tables fit PREFIX_SMEM_BYTES."""
+    if forest_kind == "never_fail":
+        forest = load_facefinder()
+        ft = face_forest_from_numpy(forest.depth, forest.codes, forest.preds,
+                                    np.full_like(forest.thresh, -1e4),
+                                    cuda_device)
+        limits = (1, 32, 33, 64)
+    elif forest_kind == "random_d6_t80":
+        ft = _random_forest(4, 6, 80, cuda_device)
+        limits = (1, 32, 33, 64)
+    else:
+        ft = _random_forest(5, 8, 40, cuda_device)
+        limits = (1, 23)
+        assert (face_cuda.prefix_smem_bytes(24, 256)
+                > face_cuda.PREFIX_SMEM_BYTES
+                >= face_cuda.prefix_smem_bytes(23, 256))
+    tables = (ft.codes, ft.preds, ft.thresh)
+    rng = np.random.default_rng(4)
+    frames = torch.from_numpy(np.stack([
+        gray, rng.integers(0, 256, gray.shape, dtype=np.uint8)])).to(
+            cuda_device)
+    plan = windows.build_window_plan(400, 320, **HEADLINE)
+    routed = face_cuda.route_plan(plan, ft.num_trees, prefix=True)
+    [seg] = [sg for sg in routed.segments if sg.prefix]
+    base, scale = face_cuda.device_plan(plan, cuda_device)
+    pb, ps = base[seg.lo:seg.hi], scale[seg.lo:seg.hi]
+    for a in (0, 2):
+        for t_limit in limits:
+            before = face_cuda.face_prefix_launches
+            got = face_cuda.face_prefix(frames, pb, ps, *tables, t_limit,
+                                        angle_idx=a)
+            assert face_cuda.face_prefix_launches == before + 1
+            want = face_dense.classify_windows(frames, pb, ps, *tables,
+                                               t_limit, angle_idx=a)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (a, t_limit)
+            if forest_kind == "never_fail":
+                assert bool((got == face_dense.PREFIX_MARK).all())
+            elif t_limit > 1:
+                assert (got == -1.0).any() and (got != -1.0).any()
+
+
 def test_prefix_shared_memory_limit_raises_on_card(cuda_device):
     """The prefix kernel refuses tables above the shared memory it asks
     for (32 trees of depth 8: 65,664 B) before any launch."""
@@ -282,6 +333,66 @@ def test_pupil_walk_matches_plain_on_card(cuda_device, gray):
                                 **kw)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("trees", [1, 20, 32])
+@pytest.mark.parametrize("depth", [1, 10])
+def test_pupil_walk_edges_on_card(cuda_device, gray, trees, depth):
+    """The walk kernel on seeded random forests at its edges: one tree, 20
+    and a full warp's 32 trees a stage, depth 1 (the root is the last
+    level: one leaf pair, no children pair) and 10, upright and rotated,
+    with flipped walkers and a walker count that is no multiple of a
+    block's walkers: bit-equal to the plain walk on (r, c, s)."""
+    from pigo_tpu_torch.convert import pupil_forest_from_numpy
+
+    rng = np.random.default_rng(100 * trees + depth)
+    nc, stages, leaves = 3, 4, 1 << depth
+    t = pupil_forest_from_numpy(
+        rng.integers(-128, 128, (nc, stages, trees, leaves, 4),
+                     dtype=np.int8),
+        rng.uniform(-0.3, 0.3, (nc, stages, trees, leaves, 2)).astype(
+            np.float32),
+        stages=stages, trees=trees, depth=depth, scale_mult=0.9,
+        device=cuda_device)
+    warps = pupil_cuda.schedule()
+    n = 7 * warps * 4 + 3
+    assert n % warps
+    pix = torch.from_numpy(gray.reshape(-1)).to(cuda_device)
+    starts = [torch.from_numpy(a).to(cuda_device) for a in (
+        rng.integers(0, nc, n).astype(np.int32),
+        rng.uniform(0, 400, n).astype(np.float32),
+        rng.uniform(0, 320, n).astype(np.float32),
+        rng.uniform(8, 200, n).astype(np.float32),
+        np.where(rng.random(n) < 0.5, -1, 1).astype(np.int32))]
+    for a in (0, 8):
+        kw = dict(nrows=400, ncols=320, dim=320, scale_mult=0.9,
+                  rotated=a > 0, angle_idx=a)
+        before = pupil_cuda.pupil_walk_launches
+        got = pupil_cuda.pupil_walk(t.codes, t.preds, *starts, pix, **kw)
+        assert pupil_cuda.pupil_walk_launches == before + 1
+        want = pupil_dense.walk(t.codes, t.preds, *starts, pix, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), a
+
+
+def test_pupil_walk_refuses_codes_off_the_card_layout(cuda_device):
+    """Codes uploaded without convert.card_codes (an 8-byte aligned
+    buffer) are refused before any launch: the kernel reads children
+    pairs from the word before them."""
+    from pigo_tpu_torch.models.pupil import PupilLocalizer
+
+    t = PupilLocalizer(device=cuda_device).tensors
+    plain = t.codes.clone()
+    assert plain.data_ptr() % 8 == 0 and t.codes.data_ptr() % 8 == 4
+    one = torch.ones(1, device=cuda_device)
+    ids = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    pix = torch.zeros(400 * 320, dtype=torch.uint8, device=cuda_device)
+    before = pupil_cuda.pupil_walk_launches
+    with pytest.raises(ValueError, match="card_codes"):
+        pupil_cuda.pupil_walk(plain, t.preds, ids, one, one, one, ids + 1,
+                              pix, nrows=400, ncols=320, dim=320,
+                              scale_mult=t.scale_mult)
+    assert pupil_cuda.pupil_walk_launches == before
 
 
 @pytest.mark.parametrize("casc_id,runs", [(8, True), (-1, False),
