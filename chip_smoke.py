@@ -46,7 +46,16 @@ the final status line):
      and two pupil_walk launches per frame with a qualifying face, the
      streamed ms/frame, a serial face / cluster / post breakdown, and a
      torch.profiler pass for the device's busy time and idle share;
-  5. kernels — one JSON line for every ported kernel, after the seconds
+  5. cluster kernel and device detector — the cluster kernel against its
+     plain version and the host clustering, bit for bit, on the real hit
+     lists of both frames, seeded random sets up to the capacity with
+     equal-q ties and a pair at the IoU threshold, with its times and
+     bound; then FaceDetector.detect_stream_device, every dispatch under
+     torch.cuda.set_sync_debug_mode("error"): both streams and the sample
+     at angle 0.07 equal to per-frame detect, one frame through each rung
+     of the ladder, the launches and host waits per frame, and its
+     ms/frame and profile beside detect_stream's;
+  6. kernels — one JSON line for every ported kernel, after the seconds
      each phase took.
 Any failed check exits non-zero before the status line.
 """
@@ -54,6 +63,7 @@ Any failed check exits non-zero before the status line.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import sys
@@ -71,7 +81,7 @@ STREAM_FRAMES, STREAM_DEPTH = 64, 8
 HD_FRAMES, HD_DEPTH = 24, 6
 # kernel libraries: face_cascade holds face_cascade, face_finish and
 # face_prefix (csrc/face_cascade.cu with csrc/face_prefix.cu)
-LIBRARIES = ("face_cascade", "pupil_walk")
+LIBRARIES = ("face_cascade", "pupil_walk", "cluster_device")
 ROT_ANGLE = 0.07  # the golden corpus's first frozen rotation
 # FaceCascade modes of the main path: name -> constructor arguments, and
 # the (face_cascade, face_prefix, face_finish) launches each makes per
@@ -91,6 +101,16 @@ RANDOM_GROUPS = 8  # seeded random walk groups beside the real anchors
 # H100 SXM published peaks (NVIDIA data sheet, at a 700 W power limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_F64_OPS_PER_S = 34e12  # f64 outside the tensor cores
+# f64 operations of one IoU test of the cluster kernel (two halvings, eight
+# bound sums, two min, two max, two differences, two clamps, three
+# products, a sum, a difference, a quotient, a compare)
+IOU_OPS = 25
+# The cluster kernel's seeded random sets (its capacity in the device
+# detector, FaceCascade.HIT_CAPACITY, among them), and the frames of the
+# rotated device stream
+CLUSTER_SETS = (0, 1, 60, 312, 4096)
+ROT_FRAMES = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -145,7 +165,7 @@ def reset_face_counts() -> None:
 
 
 def phase_build() -> None:
-    from pigo_tpu_torch.ops import face_cuda, pupil_cuda
+    from pigo_tpu_torch.ops import cluster_device, face_cuda, pupil_cuda
     from pigo_tpu_torch.utils import build
 
     def timed(name):
@@ -158,6 +178,7 @@ def phase_build() -> None:
         seconds = dict(zip(LIBRARIES, pool.map(timed, LIBRARIES)))
     face_cuda.load_kernel()
     pupil_cuda.load_kernel()
+    cluster_device.load_kernel()
     for name in LIBRARIES:
         report = [ln.strip() for ln in build.ptxas_report(name).splitlines()
                   if "registers" in ln or "spill" in ln]
@@ -746,19 +767,21 @@ def _same_results(a, b) -> bool:
             and floats(a) == floats(b))
 
 
-def _profile_stream(det, frames, prm, iou, ms_per_frame) -> dict:
-    """One more pass of detect_stream under torch.profiler: the device's
-    busy time per frame (kernels and copies, summed from the device-side
-    events alone, one stream so none overlap), its idle share against the
-    unprofiled median ms/frame, the host's kernel-launch calls per frame
-    and the device time per frame of the largest kernels."""
+def _profile_stream(det, frames, prm, iou, ms_per_frame,
+                    method: str = "detect_stream") -> dict:
+    """One more pass of the detector's stream `method` under
+    torch.profiler: the device's busy time per frame (kernels and copies,
+    summed from the device-side events alone, one stream so none overlap),
+    its idle share against the unprofiled median ms/frame, the host's
+    kernel-launch calls per frame and the device time per frame of the
+    largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        out = list(det.detect_stream(frames, prm, iou_threshold=iou,
-                                     seed=SEED, depth=DET_DEPTH))
+        out = list(getattr(det, method)(frames, prm, iou_threshold=iou,
+                                        seed=SEED, depth=DET_DEPTH))
     check(len(out) == len(frames), "profiled stream lost frames")
     events = prof.key_averages()
     device = [e for e in events
@@ -776,24 +799,41 @@ def _profile_stream(det, frames, prm, iou, ms_per_frame) -> dict:
             e.key[:60]: e.self_device_time_total / 1e3 / n for e in top})
 
 
-def phase_detector(gray, hd, golden, det, card) -> dict:
-    """FaceDetector on the card through its entry points (see the module
-    docstring, phase 4)."""
-    import torch
-
-    from pigo_tpu_torch import FaceDetector
-    from pigo_tpu_torch.detector import (MIN_EYE_FACE_SCALE, PERTURBS,
-                                         Q_THRESH, CascadeParams, Detection,
-                                         FaceResult)
-    from pigo_tpu_torch.ops import face_cuda, pupil_cuda
-    from pigo_tpu_torch.ops.cluster import cluster_detections
-    from pigo_tpu_torch.utils.profiling import PipelineStats
+def detector_streams(gray, hd, golden):
+    """The golden sample's (params, IoU) and the detector's streams:
+    (name, frames, params, timing reps) for the sample (rolled 0-7
+    columns) and the 1080p tiling."""
+    from pigo_tpu_torch.detector import CascadeParams
 
     c = golden["config"]
     params = CascadeParams(c["min_size"], c["max_size"], c["shift_factor"],
                            c["scale_factor"])
-    iou = c["iou"]
-    hd_params = CascadeParams(**DET_HD)
+    streams = (
+        ("sample", [np.roll(gray, i % 8, axis=1)
+                    for i in range(STREAM_FRAMES)], params, 5),
+        ("hd1080", [np.roll(hd, i % 8, axis=1) for i in range(HD_FRAMES)],
+         CascadeParams(**DET_HD), 3),
+    )
+    return params, c["iou"], streams
+
+
+def frame_generator(i):
+    import torch
+
+    return torch.Generator().manual_seed(SEED + i)
+
+
+def phase_detector(gray, hd, golden, det, card) -> dict:
+    """FaceDetector on the card through its entry points (see the module
+    docstring, phase 4)."""
+    from pigo_tpu_torch import FaceDetector
+    from pigo_tpu_torch.detector import (MIN_EYE_FACE_SCALE, PERTURBS,
+                                         Q_THRESH, Detection, FaceResult)
+    from pigo_tpu_torch.ops import face_cuda, pupil_cuda
+    from pigo_tpu_torch.ops.cluster import cluster_detections
+    from pigo_tpu_torch.utils.profiling import PipelineStats
+
+    params, iou, streams = detector_streams(gray, hd, golden)
     det_cpu = FaceDetector(device="cpu")
     rows, cols = gray.shape
     # the golden uniforms of the qualifying faces, in cluster order
@@ -803,15 +843,6 @@ def phase_detector(gray, hd, golden, det, card) -> dict:
                              for i in quals])
     u_lmk = np.concatenate([golden_uniforms(f"{GOLDEN_TAG}:face{i}:lmk", 15)
                             for i in quals])
-    streams = (
-        ("sample", [np.roll(gray, i % 8, axis=1)
-                    for i in range(STREAM_FRAMES)], params, 5),
-        ("hd1080", [np.roll(hd, i % 8, axis=1) for i in range(HD_FRAMES)],
-         hd_params, 3),
-    )
-
-    def frame_generator(i):
-        return torch.Generator().manual_seed(SEED + i)
 
     # ---- the main path, counted: detect, then both streams
     face_cuda.face_cascade_launches = 0
@@ -876,11 +907,13 @@ def phase_detector(gray, hd, golden, det, card) -> dict:
           == [list(map(int, d[:3])) for d in rot_want if d[3] > Q_THRESH],
           f"faces at angle {ROT_ANGLE} != the golden rotation's clusters")
     summary = {}
+    per_frame_detect = {}
     for name, frames, prm, _ in streams:
         got = streamed[name]
         per = [det.detect(fr, fr.shape[0], fr.shape[1], prm,
                           iou_threshold=iou, generator=frame_generator(i))
                for i, fr in enumerate(frames)]
+        per_frame_detect[name] = per
         check(len(got) == len(frames)
               and all(_same_results(a, b) for a, b in zip(got, per)),
               f"{name}: detect_stream != per-frame detect")
@@ -941,6 +974,267 @@ def phase_detector(gray, hd, golden, det, card) -> dict:
             profile=_profile_stream(det, frames, prm, iou, median),
             card=card)
         emit("detector_time", stream=name, **timing[name])
+    return {"launches": launches, "timing": timing, "summary": summary,
+            "per_frame_detect": per_frame_detect}
+
+
+@contextlib.contextmanager
+def sync_free_dispatch(det):
+    """Every device-stream dispatch of `det` (re-dispatches of the ladder
+    too) runs under torch.cuda.set_sync_debug_mode("error"): a host
+    synchronisation there raises."""
+    import torch
+
+    dispatch = det._dispatch_frame_device
+
+    def guarded(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    det._dispatch_frame_device = guarded
+    try:
+        yield
+    finally:
+        del det._dispatch_frame_device
+
+
+def ladder_counts():
+    from pigo_tpu_torch import detector
+
+    return {k: getattr(detector, k) for k in (
+        "face_slot_escalations", "hit_cap_escalations", "detect_fallbacks",
+        "device_frame_waits")}
+
+
+def reset_ladder_counts() -> None:
+    from pigo_tpu_torch import detector
+
+    detector.face_slot_escalations = detector.hit_cap_escalations = 0
+    detector.detect_fallbacks = detector.device_frame_waits = 0
+
+
+def phase_cluster_kernel(gray, hd, golden, det, card) -> dict:
+    """The cluster kernel against its plain version on the card, bit for
+    bit, at the device detector's capacity (FaceCascade.HIT_CAPACITY): the
+    real hit lists of the sample frame (golden configuration) and the
+    1080p tiling, seeded random sets of CLUSTER_SETS entries with equal-q
+    ties, and a pair whose IoU is exactly the threshold in f64; each also
+    equal to the host clustering. Times and bounds on the real lists."""
+    import torch
+
+    from pigo_tpu_torch.ops import cluster_device as cd
+    from pigo_tpu_torch.ops.cluster import cluster_detections
+    from pigo_tpu_torch.utils.device import cuda_ms
+
+    cap = det.face.HIT_CAPACITY
+    dev = det.device
+    _, iou, streams = detector_streams(gray, hd, golden)
+    rng = np.random.default_rng(SEED)
+    cases = []
+    for name, frames, prm, _ in streams:
+        hits = det.face.run_cascade(
+            frames[0], *frames[0].shape, min_size=prm.min_size,
+            max_size=prm.max_size, shift_factor=prm.shift_factor,
+            scale_factor=prm.scale_factor)
+        cases.append((name, hits, iou))
+    for n in CLUSTER_SETS:
+        rows = rng.integers(20, 1060, n)
+        cols = rng.integers(20, 1900, n)
+        scales = rng.choice(np.arange(40, 200, 7), n)
+        q = rng.choice(np.float32([0.5, 1.25, 2.0, 3.75, 5.5, 9.0]), n)
+        cases.append((f"random_{n}", np.stack([rows, cols, scales, q], 1),
+                      0.2))
+    # IoU 12 / 60: exactly 0.2 in f64, so the two stay apart
+    cases.append(("at_threshold", np.array([[10, 10, 6, 3.0],
+                                            [10, 14, 6, 2.0]]), 0.2))
+    stats = {"max_abs_err": 0.0, "cases": {}}
+    for name, dets, thr in cases:
+        n = dets.shape[0]
+        buf = np.zeros((cap, 4), np.float32)
+        buf[:n] = dets
+        args = (torch.from_numpy(buf).to(dev),
+                torch.arange(cap, device=dev) < n,
+                torch.tensor([n], dtype=torch.int32, device=dev), thr)
+        before = cd.cluster_device_launches
+        got, gvalid = cd.cluster_device(*args, capacity=cap)
+        torch.cuda.synchronize()
+        check(cd.cluster_device_launches == before + 1,
+              f"cluster_device {name}: no launch counted")
+        plain_ms, (want, wvalid) = plain_run(
+            lambda: cd.cluster_plain(*args))
+        stats["max_abs_err"] = max(stats["max_abs_err"],
+                                   float((got - want).abs().max()))
+        check(torch.equal(gvalid, wvalid) and torch.equal(
+            got.view(torch.int32), want.view(torch.int32)),
+            f"cluster_device {name}: kernel != plain version")
+        host = cluster_detections(dets.astype(np.float64), thr)
+        check(np.array_equal(got[gvalid].cpu().numpy(),
+                             host.astype(np.float32)),
+              f"cluster_device {name}: != the host clustering")
+        seeds = int(gvalid.sum())
+        check(name != "at_threshold" or seeds == 2,
+              "the pair at the IoU threshold was joined")
+        case = dict(entries=n, clusters=seeds, iou=thr, plain_ms=plain_ms)
+        if name in ("sample", "hd1080"):
+            case["ms"] = cuda_ms(lambda: cd.cluster_device(
+                *args, capacity=cap), 200, queue_ahead=True)
+            # bytes: the count, n rows of dets and valid read, every slot
+            # of both outputs written; operations: every seed's IoU test
+            # against every entry, in f64
+            b_s = (4 + 17 * n + 17 * cap) / PEAK_BYTES_PER_S
+            o_s = seeds * n * IOU_OPS / PEAK_F64_OPS_PER_S
+            case["bound_ms"] = max(b_s, o_s) * 1e3
+            case["bound_by"] = "bytes" if b_s >= o_s else "operations"
+        stats["cases"][name] = case
+        emit("cluster_kernel", case=name, card=card, **case)
+    return stats
+
+
+def phase_device_detector(gray, hd, golden, det, per_frame_detect,
+                          card) -> dict:
+    """FaceDetector.detect_stream_device on the card (see the module
+    docstring, phase 5)."""
+    from pigo_tpu_torch import FaceDetector
+    from pigo_tpu_torch import detector as port_det
+    from pigo_tpu_torch.ops import cluster_device as cd
+    from pigo_tpu_torch.ops import face_cuda, pupil_cuda
+
+    params, iou, streams = detector_streams(gray, hd, golden)
+
+    def kernel_counts():
+        return {"face_cascade": face_cuda.face_cascade_launches,
+                "face_prefix": face_cuda.face_prefix_launches,
+                "face_finish": face_cuda.face_finish_launches,
+                "pupil_walk": pupil_cuda.pupil_walk_launches,
+                "cluster_device": cd.cluster_device_launches}
+
+    def reset_kernel_counts():
+        reset_face_counts()
+        pupil_cuda.pupil_walk_launches = cd.cluster_device_launches = 0
+
+    # ---- the main path, counted: both streams, every dispatch sync-free
+    reset_kernel_counts()
+    streamed, per_stream = {}, {}
+    with sync_free_dispatch(det):
+        for name, frames, prm, _ in streams:
+            before = kernel_counts()
+            reset_ladder_counts()
+            streamed[name] = list(det.detect_stream_device(
+                frames, prm, iou_threshold=iou, seed=SEED, depth=DET_DEPTH))
+            after = kernel_counts()
+            per_stream[name] = dict(
+                ladder=ladder_counts(),
+                launches={n: after[n] - before[n] for n in after})
+    launches = kernel_counts()
+
+    summary = {}
+    for name, frames, prm, _ in streams:
+        got, ladder = streamed[name], per_stream[name]["ladder"]
+        check(len(got) == len(frames) and all(
+            _same_results(a, b)
+            for a, b in zip(got, per_frame_detect[name])),
+            f"{name}: detect_stream_device != per-frame detect")
+        up = ladder["face_slot_escalations"] + ladder["hit_cap_escalations"]
+        check(ladder["detect_fallbacks"] == 0,
+              f"{name}: {ladder['detect_fallbacks']} host fallbacks")
+        check(up <= 1, f"{name}: {up} escalations")
+        dispatches = len(frames) + up
+        check(ladder["device_frame_waits"] == dispatches,
+              f"{name}: {ladder['device_frame_waits']} host waits for "
+              f"{len(frames)} frames and {up} escalations")
+        eyed = sum(any(r.face.scale > port_det.MIN_EYE_FACE_SCALE
+                       for r in frame) for frame in got)
+        want = {"face_cascade": dispatches, "face_prefix": 0,
+                "face_finish": 0, "pupil_walk": 2 * dispatches,
+                "cluster_device": dispatches}
+        check(per_stream[name]["launches"] == want,
+              f"{name}: launches {per_stream[name]['launches']}, expected "
+              f"{want}")
+        summary[name] = dict(frames=len(frames), frames_with_eyes=eyed,
+                             faces_per_frame=[len(r) for r in got[:8]],
+                             **ladder,
+                             launches=per_stream[name]["launches"])
+
+    # ---- rotated: the sample at ROT_ANGLE against per-frame detect
+    sample = streams[0][1][:ROT_FRAMES]
+    with sync_free_dispatch(det):
+        rot = list(det.detect_stream_device(
+            sample, params, angle=ROT_ANGLE, iou_threshold=iou, seed=SEED,
+            depth=DET_DEPTH))
+    rot_want = [det.detect(fr, fr.shape[0], fr.shape[1], params,
+                           angle=ROT_ANGLE, iou_threshold=iou,
+                           generator=frame_generator(i))
+                for i, fr in enumerate(sample)]
+    check(all(_same_results(a, b) for a, b in zip(rot, rot_want))
+          and len(rot) == ROT_FRAMES and len(rot[0]) >= 1,
+          f"detect_stream_device at angle {ROT_ANGLE} != per-frame detect")
+
+    # ---- one frame through each rung of the ladder (the 1080p frame:
+    # 15 faces, 312 hits), forced with small caps: one face slot, then 64
+    # hits, then one face slot with no rung above it
+    frame, hd_params = streams[1][1][0], streams[1][2]
+    cap = det.face.HIT_CAPACITY
+    rungs = {
+        "face_slots": ((cap, 0, 1), None, "face_slot_escalations"),
+        "hit_caps": ((64, 0, 16), None, "hit_cap_escalations"),
+        "detect": ((cap, 0, 1), (cap, 0, 1), "detect_fallbacks"),
+    }
+    ladder = {}
+    for rung, (caps, escalated, counter) in rungs.items():
+        rdet = FaceDetector(det.face, det.pupil, det.landmarks,
+                            device_caps=caps, device=det.device)
+        saved = port_det.DEV_CAPS_ESCALATED
+        if escalated is not None:
+            port_det.DEV_CAPS_ESCALATED = escalated
+        reset_ladder_counts()
+        try:
+            with sync_free_dispatch(rdet):
+                [got] = rdet.detect_stream_device(
+                    [frame], hd_params, iou_threshold=iou, seed=SEED + 3,
+                    depth=1)
+        finally:
+            port_det.DEV_CAPS_ESCALATED = saved
+        want = det.detect(frame, frame.shape[0], frame.shape[1], hd_params,
+                          iou_threshold=iou, generator=frame_generator(3))
+        counts = ladder_counts()
+        check(_same_results(got, want) and len(got) >= 2,
+              f"ladder rung {rung}: != detect")
+        check(counts[counter] == 1 and sum(counts.values())
+              - counts["device_frame_waits"] == 1,
+              f"ladder rung {rung}: counts {counts}")
+        ladder[rung] = counts
+    emit("device_detector", stream_equal=True, rotated_equal=True,
+         rotated_faces=[[r.face.row, r.face.col, r.face.scale, len(r.eyes),
+                         len(r.landmarks)] for r in rot[0]],
+         streams=summary, ladder=ladder, launches=launches)
+
+    # ---- ms/frame: the device stream beside detect_stream, in turns
+    timing = {}
+    for name, frames, prm, reps in streams:
+        per = {"detect_stream_device": [], "detect_stream": []}
+        for _ in range(reps):
+            for method in per:
+                t0 = time.perf_counter()
+                out = list(getattr(det, method)(
+                    frames, prm, iou_threshold=iou, seed=SEED,
+                    depth=DET_DEPTH))
+                per[method].append(
+                    (time.perf_counter() - t0) / len(frames) * 1e3)
+                check(len(out) == len(frames), f"{name}: frames lost")
+        timing[name] = {}
+        for method, ms in per.items():
+            ms.sort()
+            median = ms[len(ms) // 2]
+            timing[name][method] = dict(
+                ms_per_frame_best=ms[0], ms_per_frame_median=median,
+                reps=reps, frames=len(frames), depth=DET_DEPTH,
+                profile=_profile_stream(det, frames, prm, iou, median,
+                                        method),
+                card=card)
+        emit("device_detector_time", stream=name, **timing[name])
     return {"launches": launches, "timing": timing, "summary": summary}
 
 
@@ -995,6 +1289,10 @@ def main() -> int:
         "sample_dense": golden, GOLDEN_TAG: det_golden}, card)
     dmain = timed("detector", phase_detector, gray, hd, det_golden, det,
                   card)
+    cstats = timed("cluster_kernel", phase_cluster_kernel, gray, hd,
+                   det_golden, det, card)
+    ddev = timed("device_detector", phase_device_detector, gray, hd,
+                 det_golden, det, dmain["per_frame_detect"], card)
     emit("phase_seconds", **seconds)
     check("jax" not in sys.modules and "pigo_tpu" not in sys.modules,
           "the port pulled in jax or pigo_tpu")
@@ -1092,6 +1390,27 @@ def main() -> int:
                                               "bound_ms", "bound_by")}
                     for kind, v in shape.items() if kind != "faces"}
             for frame, shape in pstats["shapes"].items()},
+    }, {
+        "name": "cluster_device",
+        "route": "cuda",
+        "source": "pigo_tpu_torch/csrc/cluster_device.cu",
+        "replaces": "pigo_tpu/ops/cluster_device.py:30",
+        "replaces_is": "cluster_device, the JAX package's on-device IoU "
+                       "clustering (a jnp fori_loop; it has no Pallas "
+                       "kernel)",
+        "launches": ddev["launches"]["cluster_device"],
+        "max_abs_err": cstats["max_abs_err"],
+        **pick(cstats["cases"]["sample"]),
+        "library_ms": None,
+        "check": "bitwise equal to ops/cluster_device.cluster_plain and "
+                 "to the host ops/cluster.cluster_detections on the real "
+                 "hit lists, random sets of " + ", ".join(
+                     map(str, CLUSTER_SETS)) + " entries with equal-q "
+                 "ties, and a pair at the IoU threshold",
+        "ms_is": "the sample frame's hit list at capacity 4096",
+        "per_shape": {k: pick(cstats["cases"][k],
+                              TIME_KEYS + ("entries", "clusters"))
+                      for k in ("sample", "hd1080")},
     }]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

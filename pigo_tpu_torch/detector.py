@@ -25,6 +25,17 @@ Jitter: `detect` draws its uniforms from a `torch.Generator` on the host
 frame i of `detect_stream(frames, seed=s)` draws from a generator seeded
 with s + i.
 
+Device-resident stream (`detect_stream_device`, the counterpart of
+pigo_tpu/detector.py:762-998): per frame the face stage stops at its
+packed hit list on the card, and one frame program (`device_detect`)
+decodes it, clusters it with the cluster kernel (ops/cluster_device.py),
+gates the faces into a fixed number of slots, and runs the two walks over
+them, so the host waits once per frame, for one flat vector. Its jitter is
+one flat draw per frame from the frame's generator, gathered by each eyed
+face's rank on the card, so frame i equals `detect` with the generator
+seeded seed + i, bit for bit. A frame that overflows the program's caps
+climbs a ladder (more face slots, more hits, then `detect` on the card).
+
 Rotation: `angle` > 0 runs the face stage rotated (models/face.py) and
 the eye walks rotated at the same angle; the landmark walks stay upright,
 as in pigo_tpu/detector.py:187-216. A tall strided frame keeps its row
@@ -36,6 +47,7 @@ so the pad is never read), as pigo_tpu/detector.py:626-647 does.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -59,12 +71,41 @@ from pigo_tpu_torch.models.pupil import (
 )
 from pigo_tpu_torch.ops import pupil_dense
 from pigo_tpu_torch.ops.cluster import cluster_detections
+from pigo_tpu_torch.ops.cluster_device import cluster_device
 from pigo_tpu_torch.utils.device import resolve_device
 
 # CLI constants (cmd/pigo/main.go:54, :360, :404)
 PERTURBS = 63
 Q_THRESH = 5.0
 MIN_EYE_FACE_SCALE = 50
+
+# Capacities of the device frame program (`device_detect`), the
+# counterparts of pigo_tpu/detector.py:434-437, as (dense_cap, tail_cap,
+# max_faces). The JAX package caps the hits at 256 because its XLA
+# program's cost grows with the capacity. The cluster kernel's cost follows
+# the hit count it reads on the card, so a cap below the face stage's own
+# hit list only adds round trips (a 1080p frame has 312 hits): the dense
+# cap is FaceCascade.HIT_CAPACITY. The port has no host tail yet (ROADMAP
+# queue 1, item 6), so the tail cap is 0 and unused. The post stage walks
+# every face slot, filled or not, so the default is 2 slots, and a stream
+# follows its recent face counts; a frame with more faces escalates. The
+# top rung holds 32 faces, not the JAX package's 16: the rolled frames of
+# the 1080p tiling hold 12 to 24, and a slot costs the walk kernel a few
+# microseconds, far less than the round trip of a frame handed to
+# `detect`.
+DEV_DENSE_CAP = FaceCascade.HIT_CAPACITY
+DEV_TAIL_CAP = 0
+DEV_MAX_FACES = 2
+DEV_CAPS_ESCALATED = (FaceCascade.HIT_CAPACITY, 0, 32)
+
+# The device stream's ladder and host waits, counted (read by
+# chip_smoke.py; callers reset them to 0): a re-dispatch with more face
+# slots, one with larger hit caps, a frame handed to `detect`, and each
+# wait for a frame program's download.
+face_slot_escalations = 0
+hit_cap_escalations = 0
+detect_fallbacks = 0
+device_frame_waits = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,10 +292,122 @@ def fused_post(erow, ecol, escale, pixels, pupil: PupilTensors,
     npts = lmk_cids.shape[0] // (f2 // 2)
     arow, acol, ascale = landmark_anchors(eyes)
     lmk = ensemble_medians(
-        landmarks, lmk_cids, arow.repeat_interleave(npts),
-        acol.repeat_interleave(npts), ascale.repeat_interleave(npts),
+        landmarks, lmk_cids, pupil_dense.repeat_each(arow, npts),
+        pupil_dense.repeat_each(acol, npts),
+        pupil_dense.repeat_each(ascale, npts),
         lmk_flips, u_lmk, pixels, rows, cols, dim)
     return torch.cat([eyes, lmk], dim=1)
+
+
+def _device_eye_anchors(frows, fcols, fscales):
+    """Eye anchors (row, col, scale) f32 [2F] of F faces, left then right
+    eye per face, computed where the faces live (pigo_tpu/detector.py:
+    152-166): trunc(f32(0.175) * f32(s)) in f32 is the reference's
+    arithmetic (cmd/pigo/main.go:416-458) and `_eye_anchor_offsets`'."""
+    f32 = pupil_dense.f32_scalar
+    s = fscales.to(torch.float32)
+    rows, cols = frows.to(torch.float32), fcols.to(torch.float32)
+    erow = pupil_dense.repeat_each(rows - torch.trunc(f32(0.075) * s), 2)
+    ecol = torch.stack([cols - torch.trunc(f32(0.175) * s),
+                        cols + torch.trunc(f32(0.185) * s)], dim=1)
+    return erow, ecol.reshape(-1), pupil_dense.repeat_each(s * f32(0.25), 2)
+
+
+def device_detect(packed, coords, pixels, pupil: PupilTensors,
+                  landmarks: PupilTensors, u, lmk_cids, lmk_flips, *,
+                  hit_cap: int, dense_cap: int, max_faces: int,
+                  iou_threshold: float, perturbs: int, rows: int, cols: int,
+                  dim: int, angle: float = 0.0) -> torch.Tensor:
+    """One frame's program after the face stage, on the packed list's
+    device with no host synchronisation: the counterpart of
+    pigo_tpu/detector.py::_device_detect_impl, with no host tail.
+
+    packed f32 [1 + 2*hit_cap] (models/face.compact_hits); coords f32
+    [W, 3] the plan's window (row, col, scale); pixels uint8 [rows*dim];
+    u f32 [(2S + S*npts) * P * 3] the frame's flat draw; lmk_cids int32
+    and lmk_flips bool [S*npts], with S = max_faces slots. Steps: decode
+    the first dense_cap hits; cluster them (ops/cluster_device.py); gate
+    the faces (q > Q_THRESH) into S slots in cluster order by a cumsum;
+    mark the eyed ones (scale > MIN_EYE_FACE_SCALE); give eyed face k, of
+    rank j among n_eyed, the rows 2j, 2j+1 of u for its eyes and
+    2*n_eyed + j*npts + m for its point m (the rows `detect` draws for it,
+    eyes first, from the same generator); run `fused_post` over every
+    slot. Returns f32 [2 + 6S + 3*(2S + S*npts)]: hit overflow (count >
+    dense_cap), n_faces, faces [S, 4], fvalid [S], eyed [S], post."""
+    dev = packed.device
+    s = max_faces
+    count = packed[:1]
+    idx = packed[1:1 + dense_cap]
+    qv = packed[1 + hit_cap:1 + hit_cap + dense_cap]
+    dets = torch.cat([coords[idx.clamp(min=0).to(torch.int64)], qv[:, None]],
+                     dim=1)
+    clusters, cvalid = cluster_device(dets, idx >= 0, count.to(torch.int32),
+                                      iou_threshold, capacity=dense_cap)
+    keep = cvalid & (clusters[:, 3] > Q_THRESH)
+    pos = torch.cumsum(keep, 0, dtype=torch.int64)
+    n_faces = pos[-1:]
+    src = torch.zeros(s + 1, dtype=torch.int64, device=dev)
+    src.scatter_(0, torch.where(keep & (pos <= s), pos - 1, s),
+                 torch.arange(dense_cap, device=dev))
+    fvalid = torch.arange(s, device=dev) < n_faces
+    faces = torch.where(fvalid[:, None], clusters[src[:s]], 0.0)
+    eyed = fvalid & (faces[:, 2] > MIN_EYE_FACE_SCALE)
+    erow, ecol, escale = _device_eye_anchors(
+        faces[:, 0], faces[:, 1],
+        torch.where(eyed, faces[:, 2], 100.0))  # a safe pad anchor
+    npts = lmk_cids.shape[0] // s
+    epos = torch.cumsum(eyed, 0, dtype=torch.int64)
+    rank = torch.where(eyed, epos - 1, 0)[:, None]
+    u_rows = u.reshape(-1, perturbs, 3)
+    eye_rows = 2 * rank + torch.arange(2, device=dev)
+    lmk_rows = 2 * epos[-1:] + rank * npts + torch.arange(npts, device=dev)
+    post = fused_post(erow, ecol, escale, pixels, pupil, landmarks,
+                      u_rows[eye_rows.reshape(-1)],
+                      u_rows[lmk_rows.reshape(-1)], lmk_cids, lmk_flips,
+                      rows=rows, cols=cols, dim=dim, angle=angle)
+    flags = torch.cat([(count > dense_cap).to(torch.float32),
+                       n_faces.to(torch.float32)])
+    return torch.cat([flags, faces.reshape(-1), fvalid.to(torch.float32),
+                      eyed.to(torch.float32), post.reshape(-1)])
+
+
+@dataclasses.dataclass
+class _DeviceSlot:
+    """Host staging of one in-flight device frame: the face stage's upload
+    slot, the frame's flat uniforms and the program's output, pinned on a
+    card. A slot is reused only after its frame's event was waited on."""
+
+    face: _Slot
+    key: tuple | None = None
+    uniforms: torch.Tensor | None = None
+    out: torch.Tensor | None = None
+
+    def buffers(self, n_uniforms: int, n_out: int):
+        if self.key != (n_uniforms, n_out):
+            pin = self.face.device.type == "cuda"
+            self.uniforms = torch.empty(n_uniforms, dtype=torch.float32,
+                                        pin_memory=pin)
+            self.out = torch.empty(n_out, dtype=torch.float32,
+                                   pin_memory=pin)
+            self.key = (n_uniforms, n_out)
+        return self.uniforms, self.out
+
+
+@dataclasses.dataclass
+class _FrameTicket:
+    """One dispatched device frame: what a re-dispatch or `detect` needs
+    (the frame, its (params, angle, iou_threshold, perturbs), its seed, its
+    caps and slot), and the program's output with its event (None: the
+    frame has no window)."""
+
+    frame: np.ndarray
+    args: tuple
+    seed: int
+    caps: tuple
+    slot: _DeviceSlot
+    npts: int
+    out: torch.Tensor | None = None
+    event: object = None
 
 
 @dataclasses.dataclass
@@ -278,8 +431,28 @@ class FaceDetector:
                  pupil: PupilLocalizer | None = None,
                  landmarks: LandmarkLocalizer | None = None, *,
                  with_pupils: bool = True, with_landmarks: bool = True,
+                 device_caps: tuple[int, int, int] | None = None,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
+        # (dense_cap, tail_cap, max_faces) of detect_stream_device's frame
+        # program; frames that exceed them escalate. Without explicit caps
+        # the face slots follow the largest face count of the last 8
+        # frames with half of it again as headroom, in power-of-two
+        # buckets: a bucket that only just holds the faces makes the next
+        # frame with a few more escalate (the 1080p tiling's rolled frames
+        # go 15, 24, 12), and a pad slot costs less than a round trip.
+        caps = (DEV_DENSE_CAP, DEV_TAIL_CAP, DEV_MAX_FACES
+                ) if device_caps is None else tuple(device_caps)
+        if not (len(caps) == 3 and 1 <= caps[0] <= FaceCascade.HIT_CAPACITY
+                and caps[2] >= 1):
+            raise ValueError(f"device_caps must be (dense_cap in [1, "
+                             f"{FaceCascade.HIT_CAPACITY}], tail_cap, "
+                             f"max_faces >= 1), got {device_caps}")
+        self.device_caps = caps
+        self._auto_caps = device_caps is None
+        self._recent_face_counts: collections.deque = collections.deque(
+            maxlen=8)
+        self._lmk_tables: dict[int, tuple] = {}
         self.face = face if face is not None else FaceCascade(
             device=self.device)
         self.pupil = pupil if pupil is not None else (
@@ -310,13 +483,15 @@ class FaceDetector:
         return FaceCascade._as_frames(pixels, rows, dim), cols
 
     def _dispatch_faces(self, frames, slot: _Slot, params: CascadeParams,
-                        angle: float):
-        """Async face stage of `_frames`'s (frames, cols)."""
+                        angle: float, download: bool = True):
+        """Async face stage of `_frames`'s (frames, cols); without download
+        it stops at the packed hit list on the device."""
         frames, cols = frames
         return self.face._dispatch(frames, slot, dict(
             min_size=params.min_size, max_size=params.max_size,
             shift_factor=params.shift_factor,
-            scale_factor=params.scale_factor), angle_index(angle), cols)
+            scale_factor=params.scale_factor), angle_index(angle), cols,
+            download)
 
     def _faces(self, ticket, iou_threshold: float) -> list[Detection]:
         """Blocking half of the face stage: hits -> clustered detections."""
@@ -477,3 +652,165 @@ class FaceDetector:
             results, post = postq.popleft()
             self._collect_post(post)
             yield results
+
+    # ------------------------------------------- device-resident stream
+
+    def detect_stream_device(self, frames,
+                             params: CascadeParams = CascadeParams(),
+                             angle: float = 0.0, iou_threshold: float = 0.15,
+                             perturbs: int = PERTURBS, seed: int = 0,
+                             depth: int = 4, stats=None):
+        """Device-resident streaming pipeline over [rows, cols] uint8
+        frames: per frame the face stage, the clustering, the face gating
+        and both walks are enqueued with no host synchronisation, and the
+        host waits once, for the frame program's flat result, `depth`
+        frames later. Yields the per-frame list[FaceResult] in input
+        order; frame i's results equal `detect(frame_i,
+        generator=torch.Generator().manual_seed(seed + i))` bit for bit,
+        through every rung of the ladder (`_collect_frame_device`).
+        The first frame is collected before the second is dispatched, so
+        that the frames behind it are sized by its face count (one
+        escalation at most at a stream's start, not one per frame in
+        flight). A detector without pupils or landmarks runs
+        `detect_stream`. `stats`, a utils.profiling.PipelineStats, times
+        the "dispatch" and "collect" stages."""
+        if self.pupil is None or self.landmarks is None:
+            yield from self.detect_stream(frames, params, angle,
+                                          iou_threshold, perturbs, seed,
+                                          depth)
+            return
+        depth = max(1, int(depth))
+        # frame k reuses the slot of frame k - depth, collected by then
+        ring = [_DeviceSlot(_Slot(self.device)) for _ in range(depth)]
+        args = (params, angle, iou_threshold, perturbs)
+        stage = (stats.stage if stats is not None
+                 else lambda name, items=0: contextlib.nullcontext())
+        inflight: collections.deque = collections.deque()
+        for i, frame in enumerate(frames):
+            with stage("dispatch", items=1):
+                inflight.append(self._dispatch_frame_device(
+                    frame, args, seed + i, ring[i % depth]))
+            if len(inflight) >= depth or i == 0:
+                with stage("collect", items=1):
+                    results = self._collect_frame_device(inflight.popleft())
+                yield results
+        while inflight:
+            with stage("collect", items=1):
+                results = self._collect_frame_device(inflight.popleft())
+            yield results
+
+    def _device_tables(self, slots: int):
+        """The landmark schedule's cascade ids and flips over `slots` face
+        slots, on the device, uploaded once per slot count."""
+        hit = self._lmk_tables.get(slots)
+        if hit is None:
+            cids, flips = self.landmarks.schedule_arrays(slots)
+            hit = (to_device(cids, self.device, torch.int32),
+                   to_device(flips, self.device, torch.bool))
+            self._lmk_tables[slots] = hit
+        return hit
+
+    def _dispatch_frame_device(self, frame, args: tuple, seed: int,
+                               slot: _DeviceSlot,
+                               caps: tuple | None = None) -> _FrameTicket:
+        """Async half: the frame's upload, face stage, jitter draw and
+        upload, frame program and the download of its result, enqueued
+        without waiting for the device."""
+        params, angle, iou_threshold, perturbs = args
+        if caps is None:
+            caps = self.device_caps
+            if self._auto_caps and self._recent_face_counts:
+                most = max(self._recent_face_counts)
+                want = max(1, most + most // 2)
+                caps = (caps[0], caps[1], min(1 << (want - 1).bit_length(),
+                                              DEV_CAPS_ESCALATED[2]))
+        dense_cap, _, s = caps
+        npts = len(self.landmarks.point_schedule)
+        ticket = _FrameTicket(frame=frame, args=args, seed=seed,
+                              caps=tuple(caps), slot=slot, npts=npts)
+        face = self._dispatch_faces(
+            self._frames(frame, frame.shape[-2], frame.shape[-1], angle),
+            slot.face, params, angle, download=False)
+        if face.q is None:  # frame smaller than the smallest face
+            return ticket
+        n_uniforms = (2 * s + s * npts) * perturbs * 3
+        u_host, out_host = slot.buffers(
+            n_uniforms, 2 + 6 * s + 3 * (2 * s + s * npts))
+        torch.rand(n_uniforms, generator=torch.Generator().manual_seed(seed),
+                   out=u_host)
+        cids, flips = self._device_tables(s)
+        _, rows, dim = face.frames.shape
+        out = device_detect(
+            face.packed[0], face.coords, face.frames[0].reshape(-1),
+            self.pupil.tensors, self.landmarks.tensors,
+            u_host.to(self.device, non_blocking=True), cids, flips,
+            hit_cap=face.cap, dense_cap=dense_cap, max_faces=s,
+            iou_threshold=iou_threshold, perturbs=perturbs, rows=rows,
+            cols=face.cols, dim=dim, angle=angle)
+        if self.device.type == "cuda":
+            ticket.out = out_host.copy_(out, non_blocking=True)
+            ticket.event = torch.cuda.Event()
+            ticket.event.record(torch.cuda.current_stream(self.device))
+        else:
+            ticket.out = out
+        return ticket
+
+    def _collect_frame_device(self, ticket: _FrameTicket) -> list[FaceResult]:
+        """Blocking half: one wait for the frame program's result, then the
+        ladder (pigo_tpu/detector.py:931-998): a hit overflow re-dispatches
+        with DEV_CAPS_ESCALATED's hit caps, a face-slot overflow with the
+        power-of-two slots that hold the frame's faces; a frame beyond the
+        top rung runs `detect` on this detector's device with the frame's
+        generator. Each rung is counted."""
+        global face_slot_escalations, hit_cap_escalations, \
+            detect_fallbacks, device_frame_waits
+        if ticket.out is None:
+            return []
+        if ticket.event is not None:
+            ticket.event.synchronize()
+        device_frame_waits += 1
+        out = ticket.out.numpy()
+        caps = list(ticket.caps)
+        s, npts = caps[2], ticket.npts
+        n_faces = int(out[1])
+        hit_ovf = out[0] > 0.0  # then n_faces is of a cut list
+        face_ovf = not hit_ovf and n_faces > s
+        if hit_ovf:
+            caps[0] = max(DEV_CAPS_ESCALATED[0], caps[0])
+            caps[1] = max(DEV_CAPS_ESCALATED[1], caps[1])
+        elif face_ovf:
+            self._recent_face_counts.append(n_faces)
+            slots = 1 << (n_faces - 1).bit_length()
+            if slots <= DEV_CAPS_ESCALATED[2]:
+                caps[2] = slots
+        if hit_ovf or face_ovf:
+            if tuple(caps) == ticket.caps:  # beyond the top rung
+                detect_fallbacks += 1
+                params, angle, iou_threshold, perturbs = ticket.args
+                frame = ticket.frame
+                return self.detect(
+                    frame, frame.shape[-2], frame.shape[-1], params, angle,
+                    iou_threshold, perturbs,
+                    generator=torch.Generator().manual_seed(ticket.seed))
+            if hit_ovf:
+                hit_cap_escalations += 1
+            else:
+                face_slot_escalations += 1
+            return self._collect_frame_device(self._dispatch_frame_device(
+                ticket.frame, ticket.args, ticket.seed, ticket.slot,
+                tuple(caps)))
+        faces = out[2:2 + 4 * s].reshape(s, 4)
+        fvalid = out[2 + 4 * s:2 + 5 * s] > 0.0
+        eyed = out[2 + 5 * s:2 + 6 * s] > 0.0
+        post = out[2 + 6 * s:].reshape(3, 2 * s + s * npts)
+        eyes, lmk = post[:, :2 * s], post[:, 2 * s:].reshape(3, s, npts)
+        results = []
+        for i in np.flatnonzero(fvalid):
+            res = FaceResult(face=Detection(
+                row=int(faces[i, 0]), col=int(faces[i, 1]),
+                scale=int(faces[i, 2]), q=float(faces[i, 3])))
+            if eyed[i]:
+                _attach_post(res, eyes, lmk, i, npts, ticket.args[3])
+            results.append(res)
+        self._recent_face_counts.append(len(results))
+        return results

@@ -133,7 +133,8 @@ class _Ticket:
     """One dispatched batch: its plan, the frames on the device ([B, rows,
     dim], the post stage of FaceDetector reads them) and their column
     count, the device scores (kept for the dense re-read on overflow), the
-    packed host buffer and its event."""
+    packed host buffer and its event (or, for a dispatch without download,
+    the packed device list and the plan's device window coordinates)."""
 
     plan: object
     n_frames: int
@@ -143,6 +144,7 @@ class _Ticket:
     q: torch.Tensor | None = None
     packed: torch.Tensor | None = None
     event: object = None
+    coords: torch.Tensor | None = None
 
 
 class FaceCascade:
@@ -190,10 +192,16 @@ class FaceCascade:
 
     # ------------------------------------------------------------ plan
 
-    def _plan(self, rows, cols, min_size, max_size, shift_factor,
-              scale_factor, angle_idx=0):
-        """(routed plan, device base, device scale), built and uploaded
-        once per geometry, angle and routing."""
+    def _plan(self, *geometry, angle_idx=0):
+        """(routed plan, device base, device scale) of `_plan_entry`."""
+        return self._plan_entry(*geometry, angle_idx=angle_idx)[:3]
+
+    def _plan_entry(self, rows, cols, min_size, max_size, shift_factor,
+                    scale_factor, angle_idx=0):
+        """(routed plan, device base, device scale, device coords), built
+        and uploaded once per geometry, angle and routing. coords is f32
+        [W, 3], every window's (row, col, scale), from which the device
+        detector decodes the packed hit list on the card."""
         key = (rows, cols, min_size, max_size, shift_factor, scale_factor,
                angle_idx, self.prefix, self.tree_cap)
         hit = self._plans.get(key)
@@ -206,7 +214,10 @@ class FaceCascade:
             routed = face_cuda.route_plan(
                 plan, self.forest.num_trees, prefix=self.prefix,
                 tree_cap=self.tree_cap)
-            hit = (routed, *face_cuda.device_plan(plan, self.device))
+            coords = np.stack([plan.rows_w, plan.cols_w, plan.scale_w],
+                              axis=1).astype(np.float32)
+            hit = (routed, *face_cuda.device_plan(plan, self.device),
+                   face_cuda.upload(coords, self.device))
             self._plans[key] = hit
         return hit
 
@@ -245,15 +256,19 @@ class FaceCascade:
         return staging.to(self.device, non_blocking=True)
 
     def _dispatch(self, frames, slot: _Slot, cfg: dict, angle_idx: int = 0,
-                  cols: int | None = None) -> _Ticket:
+                  cols: int | None = None, download: bool = True) -> _Ticket:
         """Async half: the upload, the cascade launches for all frames and
         scales, the hit compaction and the download of the packed hit lists
         are all enqueued without waiting for the device. frames are
-        [B, rows, dim] with `cols` <= dim real columns (default dim)."""
+        [B, rows, dim] with `cols` <= dim real columns (default dim).
+        With download=False the dispatch stops at `compact_hits`: the
+        ticket's `packed` is the device's f32 [B, 1 + 2*cap] list, with the
+        plan's device `coords` beside it, and nothing is waited for or
+        copied back (FaceDetector.detect_stream_device)."""
         b, rows, dim = frames.shape
         cols = dim if cols is None else cols
-        routed, base, scale = self._plan(rows, cols, **cfg,
-                                         angle_idx=angle_idx)
+        routed, base, scale, coords = self._plan_entry(
+            rows, cols, **cfg, angle_idx=angle_idx)
         cap = self.HIT_CAPACITY
         ticket = _Ticket(plan=routed.windows, n_frames=b, cap=cap, cols=cols)
         if routed.windows.num_windows == 0:  # frame smaller than min face
@@ -262,7 +277,11 @@ class FaceCascade:
         ticket.frames = self._upload(frames, staging)
         ticket.q = self._scores(ticket.frames, routed, base, scale,
                                 angle_idx, cols)
-        packed_host.copy_(compact_hits(ticket.q, cap), non_blocking=True)
+        packed = compact_hits(ticket.q, cap)
+        if not download:
+            ticket.packed, ticket.coords = packed, coords
+            return ticket
+        packed_host.copy_(packed, non_blocking=True)
         ticket.packed = packed_host
         if self.device.type == "cuda":
             ticket.event = torch.cuda.Event()
@@ -335,7 +354,8 @@ class FaceCascade:
         a = angle_index(angle)
         pixels, dim = self._layout(pixels, rows, cols, dim, a)
         routed, base, scale = self._plan(
-            rows, cols, min_size, max_size, shift_factor, scale_factor, a)
+            rows, cols, min_size, max_size, shift_factor, scale_factor,
+            angle_idx=a)
         plan = routed.windows
         coords = np.stack([plan.rows_w, plan.cols_w, plan.scale_w], axis=1)
         if plan.num_windows == 0:

@@ -123,12 +123,20 @@ def route_plan(plan: WindowPlan, n_trees: int, *, prefix: bool,
     return RoutedPlan(plan, is_prefix, t_limits, segments, finish)
 
 
+def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`; to a card through pinned memory without
+    blocking the host (no synchronisation while a stream dispatches)."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def device_plan(plan: WindowPlan, device: torch.device):
     """The plan's per-window kernel inputs on `device`: (base, scale) int32
     [W], uploaded once per plan."""
-    base = torch.from_numpy(np.ascontiguousarray(plan.base, np.int32))
-    scale = torch.from_numpy(np.ascontiguousarray(plan.scale_w, np.int32))
-    return base.to(device), scale.to(device)
+    return (upload(plan.base.astype(np.int32), device),
+            upload(plan.scale_w.astype(np.int32), device))
 
 
 def _bind(lib: ctypes.CDLL) -> None:

@@ -199,6 +199,12 @@ def ensemble(codes, preds, casc_id, rows0, cols0, scales0, flips, u, pixels,
     return torch.stack([rm, cm, sm])
 
 
+def repeat_each(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x [N] -> [N*k] contiguous, each element k times in a row:
+    repeat_interleave by a copy, with no host synchronisation on a card."""
+    return x[:, None].repeat(1, k).reshape(-1)
+
+
 def walker_starts(casc_id, rows0, cols0, scales0, flips, u):
     """The walk's inputs for G groups of P jittered starts: per-group
     casc_id/rows0/cols0/scales0/flips [G] and uniforms u [G, P, 3] ->
@@ -208,5 +214,5 @@ def walker_starts(casc_id, rows0, cols0, scales0, flips, u):
     r0, c0, s0 = make_perturbations(rows0[:, None], cols0[:, None],
                                     scales0[:, None], u)
     col_sign = torch.where(flips, -1, 1).to(torch.int32)
-    return (casc_id.to(torch.int32).repeat_interleave(p), r0.reshape(-1),
-            c0.reshape(-1), s0.reshape(-1), col_sign.repeat_interleave(p))
+    return (repeat_each(casc_id.to(torch.int32), p), r0.reshape(-1),
+            c0.reshape(-1), s0.reshape(-1), repeat_each(col_sign, p))

@@ -466,3 +466,77 @@ def test_face_detector_on_card_matches_golden(cuda_device, gray):
         assert abs(e.scale - w[2]) <= 1e-5 * e.scale
     assert [[p.row, p.col] for p in got.landmarks] == [
         w[2:4] for w in want["landmarks"]]
+
+
+def _cluster_sets(cap):
+    """The smoke's seeded random sets (0, 1, 60, 312 and `cap` entries,
+    equal-q ties) and a pair whose IoU is exactly 0.2 in f64."""
+    rng = np.random.default_rng(0)
+    sets = []
+    for n in (0, 1, 60, 312, cap):
+        rows = rng.integers(20, 1060, n)
+        cols = rng.integers(20, 1900, n)
+        scales = rng.choice(np.arange(40, 200, 7), n)
+        q = rng.choice(np.float32([0.5, 1.25, 2.0, 3.75, 5.5, 9.0]), n)
+        sets.append(np.stack([rows, cols, scales, q], 1))
+    sets.append(np.array([[10, 10, 6, 3.0], [10, 14, 6, 2.0]]))
+    return sets
+
+
+def test_cluster_device_matches_plain_on_card(cuda_device):
+    """The cluster kernel is bit-equal to its plain version and to the
+    host clustering at the detector's capacity, one launch a call."""
+    from pigo_tpu_torch.ops import cluster_device as cd
+    from pigo_tpu_torch.ops.cluster import cluster_detections
+
+    cap = FaceCascade.HIT_CAPACITY
+    for dets in _cluster_sets(cap):
+        n = dets.shape[0]
+        buf = np.zeros((cap, 4), np.float32)
+        buf[:n] = dets
+        args = (torch.from_numpy(buf).to(cuda_device),
+                torch.arange(cap, device=cuda_device) < n,
+                torch.tensor([n], dtype=torch.int32, device=cuda_device), 0.2)
+        before = cd.cluster_device_launches
+        got, gvalid = cd.cluster_device(*args, capacity=cap)
+        assert cd.cluster_device_launches == before + 1
+        want, wvalid = cd.cluster_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(gvalid, wvalid)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        host = cluster_detections(dets.astype(np.float64), 0.2)
+        assert np.array_equal(got[gvalid].cpu().numpy(),
+                              host.astype(np.float32))
+        assert n != 2 or int(gvalid.sum()) == 2
+
+
+def test_detect_stream_device_matches_detect_on_card(cuda_device, gray):
+    """detect_stream_device on the card equals per-frame detect bit for
+    bit on a few sample frames, with one face_cascade, one cluster_device
+    and two pupil_walk launches and one host wait a frame."""
+    from pigo_tpu_torch import detector as port_det
+    from pigo_tpu_torch.ops import cluster_device as cd
+
+    with open(os.path.join(ROOT, "tests", "golden", "sample.json")) as fh:
+        c = json.load(fh)["config"]
+    params = CascadeParams(c["min_size"], c["max_size"], c["shift_factor"],
+                           c["scale_factor"])
+    det = FaceDetector()
+    frames = [np.roll(gray, i, axis=1) for i in range(4)]
+    before = (face_cuda.face_cascade_launches, cd.cluster_device_launches,
+              pupil_cuda.pupil_walk_launches, port_det.device_frame_waits)
+    got = list(det.detect_stream_device(frames, params,
+                                        iou_threshold=c["iou"], seed=7,
+                                        depth=2))
+    after = (face_cuda.face_cascade_launches, cd.cluster_device_launches,
+             pupil_cuda.pupil_walk_launches, port_det.device_frame_waits)
+    assert tuple(a - b for a, b in zip(after, before)) == (4, 4, 8, 4)
+    for i, (frame, res) in enumerate(zip(frames, got)):
+        want = det.detect(frame, 400, 320, params, iou_threshold=c["iou"],
+                          generator=torch.Generator().manual_seed(7 + i))
+        assert [r.to_json_dict() for r in res] == \
+            [r.to_json_dict() for r in want]
+        assert [[p.scale for p in r.eyes + r.landmarks] + [r.face.q]
+                for r in res] == [[p.scale for p in r.eyes + r.landmarks]
+                                  + [r.face.q] for r in want]
+        assert len(res) == 1 and len(res[0].landmarks) == 15
