@@ -55,8 +55,27 @@ the final status line):
      at angle 0.07 equal to per-frame detect, one frame through each rung
      of the ladder, the launches and host waits per frame, and its
      ms/frame and profile beside detect_stream's;
-  6. kernels — one JSON line for every ported kernel, after the seconds
+  6. host tail — FaceCascade(host_tail=True), alone and with tree_cap=32,
+     on the headline and 1080p streams against host_tail=False on every
+     frame, bit for bit, and on the golden corpus upright and at both
+     frozen angles; the launches of its counted run; both routings'
+     streamed ms/frame in turns, the host scales, their share of the
+     windows, the tail hits and the host scan's ms per frame, and the
+     engine's build (flags, SIMD, threads, the host's CPU);
+  7. native_cluster — the host engine's clustering against
+     ops/cluster.py on the sample's and the 1080p hit lists, bit for bit,
+     with both times, and the face streams clustered through each;
+  8. device stream with the host tail — detect_stream_device of a
+     FaceDetector(host_tail=True) on both streams equal to per-frame
+     detect, every dispatch under set_sync_debug_mode("error"), one host
+     wait a dispatch, its escalations and tail hits per frame, and its
+     ms/frame beside the all-card device stream;
+  9. CLI — pigo_tpu_torch.cli.detect_payload (the CLI's detection between
+     decode and draw) on the committed frame as RGB, equal to
+     FaceDetector.detect's payload on the card with the same seed;
+  10. kernels — one JSON line for every ported kernel, after the seconds
      each phase took.
+The build also compiles the host C++ engine (g++, beside the nvcc builds).
 Any failed check exits non-zero before the status line.
 """
 
@@ -173,9 +192,16 @@ def phase_build() -> None:
         build.build(name)
         return time.perf_counter() - t0
 
+    def timed_native():
+        t0 = time.perf_counter()
+        build.build_native()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:
+        native = pool.submit(timed_native)
         seconds = dict(zip(LIBRARIES, pool.map(timed, LIBRARIES)))
+        seconds["native"] = native.result()
     face_cuda.load_kernel()
     pupil_cuda.load_kernel()
     cluster_device.load_kernel()
@@ -183,6 +209,9 @@ def phase_build() -> None:
         report = [ln.strip() for ln in build.ptxas_report(name).splitlines()
                   if "registers" in ln or "spill" in ln]
         emit("build", library=name, seconds=seconds[name], ptxas=report)
+    emit("build", library="native", seconds=seconds["native"],
+         compiler=build.GXX, flags=build.NATIVE_FLAGS,
+         path=os.path.relpath(build.native_library_path(), ROOT))
     emit("build", all_seconds=time.perf_counter() - t0)
 
 
@@ -1238,6 +1267,345 @@ def phase_device_detector(gray, hd, golden, det, per_frame_detect,
     return {"launches": launches, "timing": timing, "summary": summary}
 
 
+def host_cpu() -> dict:
+    """The host's CPU (model name, or vendor, family and model where the
+    system hides the name) and core count, beside host-side times."""
+    import platform
+
+    info = {}
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if not line.strip():
+                    break  # the first processor's block
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    model = info.get("model name") or " ".join(
+        f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model")
+        if k in info) or platform.processor() or platform.machine()
+    return {"cpu": model, "cpu_count": os.cpu_count()}
+
+
+def _stream_ms(run, frames, reps) -> list:
+    """ms per frame of `reps` passes of run(frames), sorted."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        got = run(frames)
+        out.append((time.perf_counter() - t0) / len(frames) * 1e3)
+        check(len(got) == len(frames), "a timed stream lost frames")
+    return sorted(out)
+
+
+def _best_median(ms) -> dict:
+    return {"ms_per_frame_best": ms[0],
+            "ms_per_frame_median": ms[len(ms) // 2], "reps": len(ms)}
+
+
+def phase_host_tail(gray, hd, goldens, card) -> dict:
+    """FaceCascade(host_tail=True) on the card (see the module docstring,
+    phase 6): the counted run, checked bit for bit against host_tail=False
+    on every frame and against the goldens, then the timings in turns."""
+    from pigo_tpu_torch import FaceCascade
+    from pigo_tpu_torch.native import simd_available
+    from pigo_tpu_torch.utils import build
+
+    rows, cols = gray.shape
+    frames = [np.roll(gray, i % 8, axis=1) for i in range(STREAM_FRAMES)]
+    hdf = [np.roll(hd, i % 8, axis=1) for i in range(HD_FRAMES)]
+    shapes = (("headline", frames, HEADLINE, STREAM_DEPTH),
+              ("hd1080", hdf, HD, HD_DEPTH))
+    modes = {"default": ({}, (1, 0, 0)), "tree_cap": ({"tree_cap": 32},
+                                                      (1, 0, 1))}
+    cascades = {m: (FaceCascade(host_tail=True, **kw), FaceCascade(**kw))
+                for m, (kw, _) in modes.items()}
+    out = {"modes": {}, "timing": {}, "shapes": {}}
+    for mode, (ht, ref) in cascades.items():
+        # ---- counted: both streams, then the golden corpus
+        reset_face_counts()
+        got = {name: list(ht.stream_hits(fr, depth=depth, **cfg))
+               for name, fr, cfg, depth in shapes}
+        calls = STREAM_FRAMES + HD_FRAMES
+        for tag, golden in goldens.items():
+            cfg = _cfg(golden)
+            for angle, want in [(0.0, golden["detections"])] + [
+                    (r["angle"], r["detections"])
+                    for r in golden["rotations"]]:
+                dets = ht.run_cascade(gray, rows, cols, angle=angle, **cfg)
+                check(np.array_equal(dets, np.asarray(
+                    want, np.float64).reshape(-1, 4)),
+                    f"host tail {mode}: {tag} at angle {angle} != golden")
+                calls += 1
+        counts = face_counts()
+        expected = tuple(calls * k for k in modes[mode][1])
+        check(counts == expected, f"host tail {mode}: launches {counts}, "
+              f"expected {expected}")
+        for name, fr, cfg, depth in shapes:
+            want = list(ref.stream_hits(fr, depth=depth, **cfg))
+            check(all(np.array_equal(a, b) for a, b in zip(got[name], want))
+                  and len(got[name]) == len(fr),
+                  f"host tail {mode}: {name} stream != host_tail=False")
+        out["modes"][mode] = dict(calls=calls, launches=counts,
+                                  stream_equal_all_card=True,
+                                  golden_equal=True)
+        emit("host_tail", mode=mode, **out["modes"][mode])
+
+    # ---- the routing and the host scan alone, per shape
+    ht = cascades["default"][0]
+    for name, fr, cfg, _ in shapes:
+        routed = ht._plan(*fr[0].shape, *cfg.values())[0]
+        counts = np.bincount(routed.windows.scale_idx,
+                             minlength=routed.windows.scales.size)
+        scales = routed.host_scales
+        tails, scan_ms = [], []
+        for f in fr[:8]:
+            t0 = time.perf_counter()
+            tail = ht.native.run_scales(f, *f.shape, scales,
+                                        shift_factor=cfg["shift_factor"])
+            scan_ms.append((time.perf_counter() - t0) * 1e3)
+            tails.append(int(tail.shape[0]))
+        scan_ms.sort()
+        out["shapes"][name] = dict(
+            scales=int(routed.windows.scales.size),
+            host_scales=scales.tolist(),
+            host_windows=int(counts[routed.host].sum()),
+            windows=int(counts.sum()),
+            host_share=float(counts[routed.host].sum() / counts.sum()),
+            card_segments=len(routed.segments),
+            tail_hits_per_frame=tails,
+            raw_hits_per_frame=[int(h.shape[0]) for h in
+                                ht.stream_hits(fr[:8], depth=8, **cfg)],
+            host_scan_ms_best=scan_ms[0],
+            host_scan_ms_median=scan_ms[len(scan_ms) // 2])
+        emit("host_tail_routing", shape=name, **out["shapes"][name])
+
+    # ---- the host scan alone by thread count (the engine starts a pool
+    # of that many threads for every scale it scans)
+    from pigo_tpu_torch.cascade.assets import asset_path
+    from pigo_tpu_torch.native import NativeFaceCascade
+
+    with open(asset_path("cascade", "facefinder"), "rb") as fh:
+        raw = fh.read()
+    out["threads"] = {}
+    for name, fr, cfg, _ in shapes:
+        scales = ht._plan(*fr[0].shape, *cfg.values())[0].host_scales
+        row = {}
+        for n in (1, 2, 4, 8):
+            eng = NativeFaceCascade(raw, threads=n)
+            ms = []
+            for f in fr[:8]:
+                t0 = time.perf_counter()
+                eng.run_scales(f, *f.shape, scales,
+                               shift_factor=cfg["shift_factor"])
+                ms.append((time.perf_counter() - t0) * 1e3)
+            ms.sort()
+            row[n] = {"best": ms[0], "median": ms[len(ms) // 2]}
+        out["threads"][name] = row
+        emit("host_scan_threads", shape=name, card=card, host=host_cpu(),
+             scan_ms=row)
+
+    # ---- ms/frame, both routings in turns, each frame clustered
+    from pigo_tpu_torch.ops.cluster import cluster_detections
+
+    for mode, (ht, ref) in cascades.items():
+        for name, fr, cfg, depth in shapes:
+            per = {"host_tail": [], "all_card": []}
+            for _ in range(3 if mode == "default" else 2):
+                for routing, fc in (("host_tail", ht), ("all_card", ref)):
+                    per[routing] += _stream_ms(
+                        lambda f, fc=fc: [cluster_detections(h, 0.2) for h in
+                                          fc.stream_hits(f, depth=depth,
+                                                         **cfg)], fr, 1)
+            row = {k: _best_median(sorted(v)) for k, v in per.items()}
+            out["timing"][f"{mode}/{name}"] = row
+            emit("host_tail_time", mode=mode, shape=name, depth=depth,
+                 frames=len(fr), card=card, host=host_cpu(), **row)
+    engine = ht.native
+    out["engine"] = dict(
+        compiler=build.GXX, flags=build.NATIVE_FLAGS,
+        simd_active=engine.simd_active, simd_available=simd_available(),
+        threads=engine.threads or min(os.cpu_count() or 1, 16),
+        **host_cpu())
+    emit("host_tail_engine", **out["engine"])
+    return out
+
+
+def phase_native_cluster(gray, hd, golden, det, card) -> dict:
+    """native_cluster against ops/cluster.py (see the module docstring,
+    phase 7)."""
+    from pigo_tpu_torch import FaceCascade
+    from pigo_tpu_torch.native import native_cluster
+    from pigo_tpu_torch.ops.cluster import cluster_detections
+
+    _, iou, streams = detector_streams(gray, hd, golden)
+    out = {"lists": {}, "streams": {}}
+    for name, frames, prm, _ in streams:
+        hits = det.face.run_cascade(
+            frames[0], *frames[0].shape, min_size=prm.min_size,
+            max_size=prm.max_size, shift_factor=prm.shift_factor,
+            scale_factor=prm.scale_factor)
+        times = {"native_ms": [], "host_ms": []}
+        for _ in range(20):
+            t0 = time.perf_counter()
+            a = native_cluster(hits, iou)
+            times["native_ms"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            b = cluster_detections(hits, iou)
+            times["host_ms"].append((time.perf_counter() - t0) * 1e3)
+            check(np.array_equal(a, b), f"native_cluster {name} != "
+                  "ops/cluster.py")
+        row = dict(hits=int(hits.shape[0]), clusters=int(a.shape[0]),
+                   **{k + "_best": min(v) for k, v in times.items()},
+                   **{k + "_median": sorted(v)[len(v) // 2]
+                      for k, v in times.items()})
+        out["lists"][name] = row
+        emit("native_cluster", list=name, card=card, host=host_cpu(), **row)
+    check(out["lists"]["hd1080"]["hits"] >= 300,
+          "the 1080p list lost its hits")
+    # the face streams clustered through each, in turns (bench.py:95-97)
+    fc = FaceCascade()
+    frames = [np.roll(gray, i % 8, axis=1) for i in range(STREAM_FRAMES)]
+    hdf = [np.roll(hd, i % 8, axis=1) for i in range(HD_FRAMES)]
+    for name, fr, cfg, depth in (("headline", frames, HEADLINE, STREAM_DEPTH),
+                                 ("hd1080", hdf, HD, HD_DEPTH)):
+        per = {"native_cluster": [], "cluster_detections": []}
+        for _ in range(3):
+            for method, fn in (("native_cluster", native_cluster),
+                               ("cluster_detections", cluster_detections)):
+                per[method] += _stream_ms(
+                    lambda f, fn=fn: [fn(h, 0.2) for h in fc.stream_hits(
+                        f, depth=depth, **cfg)], fr, 1)
+        out["streams"][name] = {k: _best_median(sorted(v))
+                                for k, v in per.items()}
+        emit("native_cluster_stream", shape=name, card=card,
+             host=host_cpu(), **out["streams"][name])
+    return out
+
+
+def phase_device_host_tail(gray, hd, golden, det, per_frame_detect,
+                           card) -> dict:
+    """detect_stream_device with the host tail (see the module docstring,
+    phase 8)."""
+    from pigo_tpu_torch import FaceCascade, FaceDetector
+    from pigo_tpu_torch import detector as port_det
+    from pigo_tpu_torch.ops import cluster_device as cd
+    from pigo_tpu_torch.ops import face_cuda, pupil_cuda
+
+    _, iou, streams = detector_streams(gray, hd, golden)
+    hdet = FaceDetector(FaceCascade(host_tail=True), det.pupil, det.landmarks,
+                        host_tail=True)
+
+    def counts():
+        return {"face_cascade": face_cuda.face_cascade_launches,
+                "face_finish": face_cuda.face_finish_launches,
+                "pupil_walk": pupil_cuda.pupil_walk_launches,
+                "cluster_device": cd.cluster_device_launches}
+
+    summary, timing = {}, {}
+    for name, frames, prm, _ in streams:
+        reset_face_counts()
+        pupil_cuda.pupil_walk_launches = cd.cluster_device_launches = 0
+        reset_ladder_counts()
+        port_det.tail_cap_escalations = 0
+        with sync_free_dispatch(hdet):
+            got = list(hdet.detect_stream_device(
+                frames, prm, iou_threshold=iou, seed=SEED, depth=DET_DEPTH))
+        launches, ladder = counts(), ladder_counts()
+        ladder["tail_cap_escalations"] = port_det.tail_cap_escalations
+        check(len(got) == len(frames) and all(
+            _same_results(a, b) for a, b in zip(got, per_frame_detect[name])),
+            f"{name}: host-tail detect_stream_device != per-frame detect")
+        own = [hdet.detect(fr, *fr.shape, prm, iou_threshold=iou,
+                           generator=frame_generator(i))
+               for i, fr in enumerate(frames[:8])]
+        check(all(_same_results(a, b) for a, b in zip(got, own)),
+              f"{name}: host-tail detect_stream_device != its own detect")
+        up = ladder["face_slot_escalations"] + ladder["hit_cap_escalations"]
+        dispatches = len(frames) + up
+        check(ladder["detect_fallbacks"] == 0 and up <= 1,
+              f"{name}: ladder {ladder}")
+        check(ladder["tail_cap_escalations"] == 0,
+              f"{name}: the host tail overflowed its cap")
+        check(ladder["device_frame_waits"] == dispatches,
+              f"{name}: {ladder['device_frame_waits']} host waits for "
+              f"{dispatches} dispatches")
+        want = {"face_cascade": dispatches, "face_finish": 0,
+                "pupil_walk": 2 * dispatches, "cluster_device": dispatches}
+        check(launches == want, f"{name}: launches {launches}, expected "
+              f"{want}")
+        routed = hdet.face._plan(*frames[0].shape, prm.min_size,
+                                 prm.max_size, prm.shift_factor,
+                                 prm.scale_factor)[0]
+        tails = [int(hdet.face.native.run_scales(
+            f, *f.shape, routed.host_scales,
+            shift_factor=prm.shift_factor).shape[0]) for f in frames[:8]]
+        summary[name] = dict(frames=len(frames), **ladder,
+                             launches=launches, tail_hits_per_frame=tails,
+                             tail_cap=port_det.DEV_TAIL_CAP,
+                             faces_per_frame=[len(r) for r in got[:8]])
+        emit("device_host_tail", stream=name, equal_detect=True,
+             **summary[name])
+        per = {"host_tail": [], "all_card": []}
+        for _ in range(2):
+            for routing, d in (("host_tail", hdet), ("all_card", det)):
+                per[routing] += _stream_ms(
+                    lambda f, d=d: list(d.detect_stream_device(
+                        f, prm, iou_threshold=iou, seed=SEED,
+                        depth=DET_DEPTH)), frames, 1)
+        timing[name] = {k: _best_median(sorted(v)) for k, v in per.items()}
+        emit("device_host_tail_time", stream=name, card=card,
+             host=host_cpu(), **timing[name])
+    return {"summary": summary, "timing": timing}
+
+
+def phase_cli(gray, det, card) -> dict:
+    """The CLI's detection core on the card (see the module docstring,
+    phase 9): its payload for the committed frame as RGB with the
+    shipped cascades equals FaceDetector.detect's with the same seed."""
+    import torch
+
+    from pigo_tpu_torch.cascade.assets import asset_path
+    from pigo_tpu_torch.cli import build_parser, detect_payload
+    from pigo_tpu_torch.detector import CascadeParams
+    from pigo_tpu_torch.io.image import rgb_to_grayscale
+    from pigo_tpu_torch.ops import face_cuda, pupil_cuda
+
+    rgb = np.repeat(gray[..., None], 3, axis=2)
+    argv = ["-in", "-", "-out", "empty",
+            "-cf", asset_path("cascade", "facefinder"),
+            "-plc", asset_path("cascade", "puploc"),
+            "-flpc", asset_path("cascade", "lps"), "-json", "-",
+            "-seed", "7"]
+    args = build_parser().parse_args(argv)
+    face_cuda.face_cascade_launches = pupil_cuda.pupil_walk_launches = 0
+    t0 = time.perf_counter()
+    results, payload = detect_payload(rgb, args)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = (face_cuda.face_cascade_launches,
+                pupil_cuda.pupil_walk_launches)
+    check(launches == (1, 2), f"the CLI made {launches} (face_cascade, "
+          "pupil_walk) launches, expected (1, 2)")
+    want = det.detect(rgb_to_grayscale(rgb), *gray.shape,
+                      CascadeParams(args.min_size, args.max_size,
+                                    args.shift_factor, args.scale_factor),
+                      iou_threshold=args.iou_threshold,
+                      generator=torch.Generator().manual_seed(7))
+    check(payload == [r.to_json_dict() for r in want] and len(payload) >= 1
+          and len(payload[0].get("landmark_points", [])) == 15,
+          "the CLI's payload != FaceDetector.detect's")
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        detect_payload(rgb, args, detector=det)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ms.sort()
+    out = dict(equal_detect=True, faces=len(payload), launches=launches,
+               payload=payload, first_call_ms=first_ms,
+               detect_ms_best=ms[0], detect_ms_median=ms[2], card=card)
+    emit("cli", **out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1293,6 +1661,13 @@ def main() -> int:
                    det_golden, det, card)
     ddev = timed("device_detector", phase_device_detector, gray, hd,
                  det_golden, det, dmain["per_frame_detect"], card)
+    timed("host_tail", phase_host_tail, gray, hd, {
+        "sample_dense": golden, GOLDEN_TAG: det_golden}, card)
+    timed("native_cluster", phase_native_cluster, gray, hd, det_golden, det,
+          card)
+    timed("device_host_tail", phase_device_host_tail, gray, hd, det_golden,
+          det, dmain["per_frame_detect"], card)
+    timed("cli", phase_cli, gray, det, card)
     emit("phase_seconds", **seconds)
     check("jax" not in sys.modules and "pigo_tpu" not in sys.modules,
           "the port pulled in jax or pigo_tpu")

@@ -2,9 +2,15 @@
 
 A port of `pigo_tpu` (JAX/Pallas on a TPU), which stays the reference it is
 held against, bit for bit. The port imports torch and numpy only, never jax
-and nothing of `pigo_tpu`. Its hand-written kernels, the soft-cascade face
-classifier (csrc/face_cascade.cu) and the pupil/landmark regression walk
-(csrc/pupil_walk.cu), build with nvcc at first use.
+and nothing of `pigo_tpu`. Its hand-written kernels build with nvcc at
+first use from four sources: the soft-cascade face classifier and the exact
+finish (csrc/face_cascade.cu), the tree-prefix pass over the tail scales
+(csrc/face_prefix.cu), both on the schedule of csrc/face_walk.cuh; the
+pupil/landmark regression walk (csrc/pupil_walk.cu); and the on-card IoU
+clustering (csrc/cluster_device.cu). Its host C++ engine
+(native/pigo_native.cpp: the opt-in host tail of the face stage,
+`native_cluster`) builds with g++ at first use. The command line is
+`python -m pigo_tpu_torch.cli` (`pigo-tpu-torch`).
 """
 
 from __future__ import annotations

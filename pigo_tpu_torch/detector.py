@@ -30,7 +30,11 @@ pigo_tpu/detector.py:762-998): per frame the face stage stops at its
 packed hit list on the card, and one frame program (`device_detect`)
 decodes it, clusters it with the cluster kernel (ops/cluster_device.py),
 gates the faces into a fixed number of slots, and runs the two walks over
-them, so the host waits once per frame, for one flat vector. Its jitter is
+them, so the host waits once per frame, for one flat vector. With the
+host tail (`FaceDetector(host_tail=True)`) the engine's hits of the frame
+go up through pinned memory beside it, and the program merges them with
+the card's hits into `detect`'s scan order before clustering (the JAX
+package's tail merge, pigo_tpu/detector.py:469-477, :848-858). Its jitter is
 one flat draw per frame from the frame's generator, gathered by each eyed
 face's rank on the card, so frame i equals `detect` with the generator
 seeded seed + i, bit for bit. A frame that overflows the program's caps
@@ -71,7 +75,7 @@ from pigo_tpu_torch.models.pupil import (
 )
 from pigo_tpu_torch.ops import pupil_dense
 from pigo_tpu_torch.ops.cluster import cluster_detections
-from pigo_tpu_torch.ops.cluster_device import cluster_device
+from pigo_tpu_torch.ops.cluster_device import MAX_CAPACITY, cluster_device
 from pigo_tpu_torch.utils.device import resolve_device
 
 # CLI constants (cmd/pigo/main.go:54, :360, :404)
@@ -85,25 +89,30 @@ MIN_EYE_FACE_SCALE = 50
 # program's cost grows with the capacity. The cluster kernel's cost follows
 # the hit count it reads on the card, so a cap below the face stage's own
 # hit list only adds round trips (a 1080p frame has 312 hits): the dense
-# cap is FaceCascade.HIT_CAPACITY. The port has no host tail yet (ROADMAP
-# queue 1, item 6), so the tail cap is 0 and unused. The post stage walks
-# every face slot, filled or not, so the default is 2 slots, and a stream
-# follows its recent face counts; a frame with more faces escalates. The
-# top rung holds 32 faces, not the JAX package's 16: the rolled frames of
-# the 1080p tiling hold 12 to 24, and a slot costs the walk kernel a few
-# microseconds, far less than the round trip of a frame handed to
-# `detect`.
+# cap is FaceCascade.HIT_CAPACITY. The tail cap bounds the host tail's
+# hits (FaceDetector(host_tail=True)): the JAX package's 64 and 128 would
+# overflow on every 1080p frame, whose ~312 raw hits all lie in host
+# scales (the headline pyramid's 22 do too), so the first rung holds 512
+# and the top rung HIT_CAPACITY; dense plus tail stays within the cluster
+# kernel's MAX_CAPACITY. The post stage walks every face slot, filled or
+# not, so the default is 2 slots, and a stream follows its recent face
+# counts; a frame with more faces escalates. The top rung holds 32 faces,
+# not the JAX package's 16: the rolled frames of the 1080p tiling hold 12
+# to 24, and a slot costs the walk kernel a few microseconds, far less
+# than the round trip of a frame handed to `detect`.
 DEV_DENSE_CAP = FaceCascade.HIT_CAPACITY
-DEV_TAIL_CAP = 0
+DEV_TAIL_CAP = 512
 DEV_MAX_FACES = 2
-DEV_CAPS_ESCALATED = (FaceCascade.HIT_CAPACITY, 0, 32)
+DEV_CAPS_ESCALATED = (FaceCascade.HIT_CAPACITY, FaceCascade.HIT_CAPACITY, 32)
 
 # The device stream's ladder and host waits, counted (read by
 # chip_smoke.py; callers reset them to 0): a re-dispatch with more face
-# slots, one with larger hit caps, a frame handed to `detect`, and each
-# wait for a frame program's download.
+# slots, one with larger hit caps (and, among those, the ones whose host
+# tail overflowed its cap), a frame handed to `detect`, and each wait for a
+# frame program's download.
 face_slot_escalations = 0
 hit_cap_escalations = 0
+tail_cap_escalations = 0
 detect_fallbacks = 0
 device_frame_waits = 0
 
@@ -313,27 +322,52 @@ def _device_eye_anchors(frows, fcols, fscales):
     return erow, ecol.reshape(-1), pupil_dense.repeat_each(s * f32(0.25), 2)
 
 
+def merge_tail(dets, valid, tail, tail_cap: int, rows: int, cols: int):
+    """The card's decoded hits (dets f32 [D, 4], valid bool [D], in scan
+    order) and the host tail's (tail f32 [1 + 4*tail_cap]: the count, then
+    tail_cap rows (row, col, scale, q) in scan order) as one list in
+    reference scan order, valid entries first: what `detect`'s host merge
+    (models/face.merge_scan_order) gives, on the card and without a host
+    synchronisation. A stable sort on the window key (scale, row, col),
+    invalid entries last. Returns (dets [D + tail_cap, 4], valid, the
+    tail's count f32 [1])."""
+    tail_n = tail[:1]
+    trows = tail[1:].reshape(tail_cap, 4)
+    tvalid = torch.arange(tail_cap, device=tail.device) < tail_n
+    dets = torch.cat([dets, trows])
+    valid = torch.cat([valid, tvalid])
+    r, c, s = dets[:, :3].to(torch.int64).unbind(1)
+    key = torch.where(valid, (s * rows + r) * cols + c,
+                      torch.iinfo(torch.int64).max)
+    order = torch.sort(key, stable=True).indices
+    return dets[order], valid[order], tail_n
+
+
 def device_detect(packed, coords, pixels, pupil: PupilTensors,
                   landmarks: PupilTensors, u, lmk_cids, lmk_flips, *,
                   hit_cap: int, dense_cap: int, max_faces: int,
                   iou_threshold: float, perturbs: int, rows: int, cols: int,
-                  dim: int, angle: float = 0.0) -> torch.Tensor:
+                  dim: int, angle: float = 0.0, tail=None,
+                  tail_cap: int = 0) -> torch.Tensor:
     """One frame's program after the face stage, on the packed list's
     device with no host synchronisation: the counterpart of
-    pigo_tpu/detector.py::_device_detect_impl, with no host tail.
+    pigo_tpu/detector.py::_device_detect_impl.
 
     packed f32 [1 + 2*hit_cap] (models/face.compact_hits); coords f32
     [W, 3] the plan's window (row, col, scale); pixels uint8 [rows*dim];
     u f32 [(2S + S*npts) * P * 3] the frame's flat draw; lmk_cids int32
-    and lmk_flips bool [S*npts], with S = max_faces slots. Steps: decode
-    the first dense_cap hits; cluster them (ops/cluster_device.py); gate
+    and lmk_flips bool [S*npts], with S = max_faces slots; tail (host tail
+    only) f32 [1 + 4*tail_cap], the host engine's hits (`merge_tail`).
+    Steps: decode the first dense_cap hits; merge the tail's first
+    tail_cap into scan order; cluster them (ops/cluster_device.py); gate
     the faces (q > Q_THRESH) into S slots in cluster order by a cumsum;
     mark the eyed ones (scale > MIN_EYE_FACE_SCALE); give eyed face k, of
     rank j among n_eyed, the rows 2j, 2j+1 of u for its eyes and
     2*n_eyed + j*npts + m for its point m (the rows `detect` draws for it,
     eyes first, from the same generator); run `fused_post` over every
-    slot. Returns f32 [2 + 6S + 3*(2S + S*npts)]: hit overflow (count >
-    dense_cap), n_faces, faces [S, 4], fvalid [S], eyed [S], post."""
+    slot. Returns f32 [2 + 6S + 3*(2S + S*npts)]: hit overflow (1 for
+    count > dense_cap, plus 2 for a tail count > tail_cap), n_faces,
+    faces [S, 4], fvalid [S], eyed [S], post."""
     dev = packed.device
     s = max_faces
     count = packed[:1]
@@ -341,14 +375,23 @@ def device_detect(packed, coords, pixels, pupil: PupilTensors,
     qv = packed[1 + hit_cap:1 + hit_cap + dense_cap]
     dets = torch.cat([coords[idx.clamp(min=0).to(torch.int64)], qv[:, None]],
                      dim=1)
-    clusters, cvalid = cluster_device(dets, idx >= 0, count.to(torch.int32),
-                                      iou_threshold, capacity=dense_cap)
+    valid = idx >= 0
+    overflow = (count > dense_cap).to(torch.float32)
+    n = count.to(torch.int32)
+    if tail is not None:
+        dets, valid, tail_n = merge_tail(dets, valid, tail, tail_cap, rows,
+                                         cols)
+        overflow = overflow + 2.0 * (tail_n > tail_cap)
+        n = valid.sum(dtype=torch.int32).reshape(1)
+    cc = dets.shape[0]
+    clusters, cvalid = cluster_device(dets, valid, n, iou_threshold,
+                                      capacity=cc)
     keep = cvalid & (clusters[:, 3] > Q_THRESH)
     pos = torch.cumsum(keep, 0, dtype=torch.int64)
     n_faces = pos[-1:]
     src = torch.zeros(s + 1, dtype=torch.int64, device=dev)
     src.scatter_(0, torch.where(keep & (pos <= s), pos - 1, s),
-                 torch.arange(dense_cap, device=dev))
+                 torch.arange(cc, device=dev))
     fvalid = torch.arange(s, device=dev) < n_faces
     faces = torch.where(fvalid[:, None], clusters[src[:s]], 0.0)
     eyed = fvalid & (faces[:, 2] > MIN_EYE_FACE_SCALE)
@@ -365,8 +408,7 @@ def device_detect(packed, coords, pixels, pupil: PupilTensors,
                       u_rows[eye_rows.reshape(-1)],
                       u_rows[lmk_rows.reshape(-1)], lmk_cids, lmk_flips,
                       rows=rows, cols=cols, dim=dim, angle=angle)
-    flags = torch.cat([(count > dense_cap).to(torch.float32),
-                       n_faces.to(torch.float32)])
+    flags = torch.cat([overflow, n_faces.to(torch.float32)])
     return torch.cat([flags, faces.reshape(-1), fvalid.to(torch.float32),
                       eyed.to(torch.float32), post.reshape(-1)])
 
@@ -374,23 +416,24 @@ def device_detect(packed, coords, pixels, pupil: PupilTensors,
 @dataclasses.dataclass
 class _DeviceSlot:
     """Host staging of one in-flight device frame: the face stage's upload
-    slot, the frame's flat uniforms and the program's output, pinned on a
-    card. A slot is reused only after its frame's event was waited on."""
+    slot, the frame's flat uniforms, its host tail list and the program's
+    output, pinned on a card. A slot is reused only after its frame's
+    event was waited on."""
 
     face: _Slot
     key: tuple | None = None
     uniforms: torch.Tensor | None = None
     out: torch.Tensor | None = None
+    tail: torch.Tensor | None = None
 
-    def buffers(self, n_uniforms: int, n_out: int):
-        if self.key != (n_uniforms, n_out):
+    def buffers(self, n_uniforms: int, n_out: int, tail_cap: int):
+        if self.key != (n_uniforms, n_out, tail_cap):
             pin = self.face.device.type == "cuda"
-            self.uniforms = torch.empty(n_uniforms, dtype=torch.float32,
-                                        pin_memory=pin)
-            self.out = torch.empty(n_out, dtype=torch.float32,
-                                   pin_memory=pin)
-            self.key = (n_uniforms, n_out)
-        return self.uniforms, self.out
+            self.uniforms, self.out, self.tail = (
+                torch.empty(n, dtype=torch.float32, pin_memory=pin)
+                for n in (n_uniforms, n_out, 1 + 4 * tail_cap))
+            self.key = (n_uniforms, n_out, tail_cap)
+        return self.uniforms, self.out, self.tail
 
 
 @dataclasses.dataclass
@@ -425,14 +468,20 @@ class _PostTicket:
 class FaceDetector:
     """End-to-end detector; loads the bundled cascades by default.
     `device=None` means the CUDA card and raises without one;
-    `device="cpu"` runs the kernels' plain PyTorch versions (tests)."""
+    `device="cpu"` runs the kernels' plain PyTorch versions (tests).
+    `host_tail=True` (with `host_threads` for the engine's scan) builds the
+    default FaceCascade with the host tail engine (models/face.py), so
+    `detect`, `detect_faces`, `detect_stream` and `detect_stream_device`
+    route the sparse tail scales through it; a `face` passed in keeps its
+    own routing, and host_tail=True then needs one built with it."""
 
     def __init__(self, face: FaceCascade | None = None,
                  pupil: PupilLocalizer | None = None,
                  landmarks: LandmarkLocalizer | None = None, *,
                  with_pupils: bool = True, with_landmarks: bool = True,
                  device_caps: tuple[int, int, int] | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 host_tail: bool = False, host_threads: int | None = None):
         self.device = resolve_device(device)
         # (dense_cap, tail_cap, max_faces) of detect_stream_device's frame
         # program; frames that exceed them escalate. Without explicit caps
@@ -444,17 +493,23 @@ class FaceDetector:
         caps = (DEV_DENSE_CAP, DEV_TAIL_CAP, DEV_MAX_FACES
                 ) if device_caps is None else tuple(device_caps)
         if not (len(caps) == 3 and 1 <= caps[0] <= FaceCascade.HIT_CAPACITY
+                and 0 <= caps[1] <= MAX_CAPACITY - caps[0]
                 and caps[2] >= 1):
             raise ValueError(f"device_caps must be (dense_cap in [1, "
-                             f"{FaceCascade.HIT_CAPACITY}], tail_cap, "
+                             f"{FaceCascade.HIT_CAPACITY}], tail_cap >= 0 "
+                             f"with dense_cap + tail_cap <= {MAX_CAPACITY}, "
                              f"max_faces >= 1), got {device_caps}")
         self.device_caps = caps
         self._auto_caps = device_caps is None
         self._recent_face_counts: collections.deque = collections.deque(
             maxlen=8)
         self._lmk_tables: dict[int, tuple] = {}
+        if face is not None and host_tail and not face.host_tail:
+            raise ValueError("host_tail=True with a FaceCascade built "
+                             "without it: pass host_tail to the FaceCascade")
         self.face = face if face is not None else FaceCascade(
-            device=self.device)
+            device=self.device, host_tail=host_tail,
+            host_threads=host_threads)
         self.pupil = pupil if pupil is not None else (
             PupilLocalizer(device=self.device)
             if (with_pupils or with_landmarks) else None)
@@ -490,8 +545,7 @@ class FaceDetector:
         return self.face._dispatch(frames, slot, dict(
             min_size=params.min_size, max_size=params.max_size,
             shift_factor=params.shift_factor,
-            scale_factor=params.scale_factor), angle_index(angle), cols,
-            download)
+            scale_factor=params.scale_factor), angle, cols, download)
 
     def _faces(self, ticket, iou_threshold: float) -> list[Detection]:
         """Blocking half of the face stage: hits -> clustered detections."""
@@ -724,7 +778,7 @@ class FaceDetector:
                 want = max(1, most + most // 2)
                 caps = (caps[0], caps[1], min(1 << (want - 1).bit_length(),
                                               DEV_CAPS_ESCALATED[2]))
-        dense_cap, _, s = caps
+        dense_cap, tail_cap, s = caps
         npts = len(self.landmarks.point_schedule)
         ticket = _FrameTicket(frame=frame, args=args, seed=seed,
                               caps=tuple(caps), slot=slot, npts=npts)
@@ -734,10 +788,19 @@ class FaceDetector:
         if face.q is None:  # frame smaller than the smallest face
             return ticket
         n_uniforms = (2 * s + s * npts) * perturbs * 3
-        u_host, out_host = slot.buffers(
-            n_uniforms, 2 + 6 * s + 3 * (2 * s + s * npts))
+        u_host, out_host, tail_host = slot.buffers(
+            n_uniforms, 2 + 6 * s + 3 * (2 * s + s * npts), tail_cap)
         torch.rand(n_uniforms, generator=torch.Generator().manual_seed(seed),
                    out=u_host)
+        tail = None
+        if face.tail is not None:  # the host tail's hits, then zero rows
+            hits = face.tail[0]
+            t = tail_host.numpy()
+            t[0] = hits.shape[0]
+            t[1:] = 0.0
+            t[1:1 + 4 * min(hits.shape[0], tail_cap)] = \
+                hits[:tail_cap].reshape(-1)
+            tail = tail_host.to(self.device, non_blocking=True)
         cids, flips = self._device_tables(s)
         _, rows, dim = face.frames.shape
         out = device_detect(
@@ -746,7 +809,8 @@ class FaceDetector:
             u_host.to(self.device, non_blocking=True), cids, flips,
             hit_cap=face.cap, dense_cap=dense_cap, max_faces=s,
             iou_threshold=iou_threshold, perturbs=perturbs, rows=rows,
-            cols=face.cols, dim=dim, angle=angle)
+            cols=face.cols, dim=dim, angle=angle, tail=tail,
+            tail_cap=tail_cap)
         if self.device.type == "cuda":
             ticket.out = out_host.copy_(out, non_blocking=True)
             ticket.event = torch.cuda.Event()
@@ -757,13 +821,14 @@ class FaceDetector:
 
     def _collect_frame_device(self, ticket: _FrameTicket) -> list[FaceResult]:
         """Blocking half: one wait for the frame program's result, then the
-        ladder (pigo_tpu/detector.py:931-998): a hit overflow re-dispatches
-        with DEV_CAPS_ESCALATED's hit caps, a face-slot overflow with the
+        ladder (pigo_tpu/detector.py:931-998): a hit overflow (card or host
+        tail) re-dispatches with DEV_CAPS_ESCALATED's hit caps, a face-slot
+        overflow with the
         power-of-two slots that hold the frame's faces; a frame beyond the
         top rung runs `detect` on this detector's device with the frame's
         generator. Each rung is counted."""
         global face_slot_escalations, hit_cap_escalations, \
-            detect_fallbacks, device_frame_waits
+            tail_cap_escalations, detect_fallbacks, device_frame_waits
         if ticket.out is None:
             return []
         if ticket.event is not None:
@@ -794,6 +859,7 @@ class FaceDetector:
                     generator=torch.Generator().manual_seed(ticket.seed))
             if hit_ovf:
                 hit_cap_escalations += 1
+                tail_cap_escalations += int(out[0]) >> 1
             else:
                 face_slot_escalations += 1
             return self._collect_frame_device(self._dispatch_frame_device(

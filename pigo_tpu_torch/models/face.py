@@ -25,10 +25,25 @@ The launches per frame (or batch) depend on the mode:
     the first PREFIX_TREES trees, the other scales to `face_cascade`, then
     `face_finish` finishes the marks.
 All write one score vector in scan order, and the finish runs before the
-compaction, so no mark reaches a caller. In the JAX package prefix=False
-routes the tail scales to its host C++ engine; the port has no host
-engine yet (ROADMAP.md), so here prefix=False means every scale on the
-card. No environment variable changes any of this.
+compaction, so no mark reaches a caller. No environment variable changes
+any of this.
+
+Host tail (`host_tail=True`, the JAX package's default route when its
+engine builds, pigo_tpu/models/face.py:84-94; here opt-in): the sparse
+tail scales (face_cuda.route_plan) get no launch and their scores stay -1
+on the card; after the card's work of a dispatch is enqueued, the port's
+C++ engine (pigo_tpu_torch/native) scans them on the host copy of the
+frame, overlapped with the card, and `_collect` merges its hits into
+reference scan order with the JAX package's lexsort
+(pigo_tpu/models/face.py:721-732). The engine takes the raw angle, as the
+JAX package passes it (pigo_tpu/models/face.py:664), so at an angle in
+(0, 1/32) its scales read rotated while the card's run upright (ROADMAP.md
+queue 3). It excludes `prefix`, combines with `tree_cap`, needs the
+cascade's bytes (a cascade built from bytes, a file or the default asset)
+and raises NativeUnavailable when the engine cannot be built: it never
+carries on all-card. A frame already on the card is downloaded for the
+engine (one synchronisation), as the JAX package fetches a device array
+(pigo_tpu/models/face.py:762-765).
 
 Rotation: `angle` in (0, 1] turns (a fraction of 2*pi) selects the
 reference's rotated reads at angle_idx = int(32 * min(angle, 1)), as the
@@ -44,7 +59,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pigo_tpu_torch.cascade.assets import load_facefinder
+from pigo_tpu_torch.cascade.assets import asset_path
 from pigo_tpu_torch.cascade.format import FaceForest, unpack_face_cascade
 from pigo_tpu_torch.convert import face_forest_from_numpy
 from pigo_tpu_torch.ops import face_cuda
@@ -106,6 +121,16 @@ def compact_hits(q: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.cat([count, idx[:, :cap], val[:, :cap]], dim=1)
 
 
+def merge_scan_order(card: np.ndarray, tail: np.ndarray) -> np.ndarray:
+    """The card's hits and the host tail's, [N, 4] (row, col, scale, q)
+    each, in reference scan order (scale-major, then row, then col): the
+    JAX package's lexsort (pigo_tpu/models/face.py:721-732). A window's
+    coordinates are unique, so the order holds wherever the host scales
+    lie in the pyramid."""
+    dets = np.concatenate([card, tail])
+    return dets[np.lexsort((dets[:, 1], dets[:, 0], dets[:, 2]))]
+
+
 class _Slot:
     """Host staging for one in-flight dispatch: the frames' upload buffer
     and the packed hit list's download buffer, both pinned on a card. A
@@ -134,7 +159,8 @@ class _Ticket:
     dim], the post stage of FaceDetector reads them) and their column
     count, the device scores (kept for the dense re-read on overflow), the
     packed host buffer and its event (or, for a dispatch without download,
-    the packed device list and the plan's device window coordinates)."""
+    the packed device list and the plan's device window coordinates), and
+    the host engine's hits of each frame (host tail only)."""
 
     plan: object
     n_frames: int
@@ -145,13 +171,18 @@ class _Ticket:
     packed: torch.Tensor | None = None
     event: object = None
     coords: torch.Tensor | None = None
+    tail: list[np.ndarray] | None = None
 
 
 class FaceCascade:
     """Face-detection forest resident on a device, with per-geometry plan
     caching. `device=None` means the CUDA card and raises without one;
     `device="cpu"` runs the plain PyTorch version (tests). `prefix` and
-    `tree_cap` (0: off) select the routing (module docstring)."""
+    `tree_cap` (0: off) select the routing, `host_tail` the host engine for
+    the tail scales, with `host_threads` for its scan (None: min(cores,
+    16); module docstring). `raw` is the cascade's
+    bytes, which the host engine parses; the default cascade and the
+    from_bytes / from_file constructors keep them."""
 
     # Fixed capacity of the packed hit list per frame. Real frames yield
     # tens of raw hits; an overflow (count > cap) triggers a dense re-read.
@@ -159,22 +190,41 @@ class FaceCascade:
 
     def __init__(self, forest: FaceForest | None = None,
                  device: str | torch.device | None = None, *,
-                 prefix: bool = False, tree_cap: int = 0):
+                 prefix: bool = False, tree_cap: int = 0,
+                 host_tail: bool = False, host_threads: int | None = None,
+                 raw: bytes | None = None):
         self.device = resolve_device(device)
-        self.forest = load_facefinder() if forest is None else forest
+        if forest is None:
+            with open(asset_path("cascade", "facefinder"), "rb") as fh:
+                raw = fh.read()
+            forest = unpack_face_cascade(raw)
+        self.forest = forest
         self.tensors = face_forest_from_numpy(
             self.forest.depth, self.forest.codes, self.forest.preds,
             self.forest.thresh, self.device)
         self.prefix = bool(prefix)
         self.tree_cap = face_cuda.resolved_cap(tree_cap,
                                                self.forest.num_trees)
+        self.host_tail = bool(host_tail)
+        self.native = None
+        if self.host_tail:
+            if self.prefix:
+                raise ValueError("host_tail excludes prefix: a tree-prefix "
+                                 "plan leaves no scale to the host engine")
+            if raw is None:
+                raise ValueError("host_tail needs the cascade's bytes: "
+                                 "build it from bytes, a file or the "
+                                 "default asset, not from a forest")
+            from pigo_tpu_torch.native import NativeFaceCascade
+
+            self.native = NativeFaceCascade(raw, threads=host_threads)
         self._plans: dict[tuple, tuple] = {}
         self._single = _Slot(self.device)
         self._batch = _Slot(self.device)
 
     @classmethod
     def from_bytes(cls, packet: bytes, device=None, **kw) -> "FaceCascade":
-        return cls(unpack_face_cascade(packet), device, **kw)
+        return cls(unpack_face_cascade(packet), device, raw=packet, **kw)
 
     @classmethod
     def from_file(cls, path: str, device=None, **kw) -> "FaceCascade":
@@ -184,7 +234,8 @@ class FaceCascade:
     @classmethod
     def from_forest(cls, forest, device=None, **kw) -> "FaceCascade":
         """Any forest with depth/codes/preds/thresh arrays, e.g. the JAX
-        package's (read duck-typed, see convert.py)."""
+        package's (read duck-typed, see convert.py). It has no bytes, so
+        host_tail=True raises ValueError."""
         return cls(FaceForest(
             depth=int(forest.depth), codes=np.asarray(forest.codes),
             preds=np.asarray(forest.preds), thresh=np.asarray(forest.thresh),
@@ -203,7 +254,7 @@ class FaceCascade:
         [W, 3], every window's (row, col, scale), from which the device
         detector decodes the packed hit list on the card."""
         key = (rows, cols, min_size, max_size, shift_factor, scale_factor,
-               angle_idx, self.prefix, self.tree_cap)
+               angle_idx, self.prefix, self.tree_cap, self.host_tail)
         hit = self._plans.get(key)
         if hit is None:
             plan = build_window_plan(rows, cols, min_size, max_size,
@@ -213,7 +264,7 @@ class FaceCascade:
                                  f"hit list holds indices below {MAX_WINDOWS}")
             routed = face_cuda.route_plan(
                 plan, self.forest.num_trees, prefix=self.prefix,
-                tree_cap=self.tree_cap)
+                tree_cap=self.tree_cap, host_tail=self.host_tail)
             coords = np.stack([plan.rows_w, plan.cols_w, plan.scale_w],
                               axis=1).astype(np.float32)
             hit = (routed, *face_cuda.device_plan(plan, self.device),
@@ -222,14 +273,17 @@ class FaceCascade:
         return hit
 
     def _scores(self, frames, routed, base, scale, angle_idx, cols):
-        """Every window's exact score f32 [B, W] in scan order: the
-        routed plan's launches (dense, then prefix) write their column
-        ranges, then the finish overwrites every mark."""
+        """Every card window's exact score f32 [B, W] in scan order: -1
+        over the host scales, then the routed plan's launches (dense, then
+        prefix) write their column ranges, then the finish overwrites
+        every mark."""
         f = self.tensors
         forest = (f.codes, f.preds, f.thresh)
         kw = dict(angle_idx=angle_idx, cols=cols)
         q = torch.empty((frames.shape[0], routed.windows.num_windows),
                         dtype=torch.float32, device=frames.device)
+        for lo, hi in routed.host_ranges:
+            q[:, lo:hi] = -1.0
         for seg in routed.segments:
             kernel = (face_cuda.face_prefix if seg.prefix
                       else face_cuda.face_cascade)
@@ -255,20 +309,44 @@ class FaceCascade:
         staging.numpy()[...] = frames
         return staging.to(self.device, non_blocking=True)
 
-    def _dispatch(self, frames, slot: _Slot, cfg: dict, angle_idx: int = 0,
-                  cols: int | None = None, download: bool = True) -> _Ticket:
+    @staticmethod
+    def _host_frames(frames) -> np.ndarray:
+        """uint8 [B, rows, dim] frames on the host, for the host engine: a
+        tensor on the card is downloaded (a synchronisation)."""
+        if isinstance(frames, torch.Tensor):
+            frames = frames.cpu().numpy()
+        return np.asarray(frames, np.uint8)
+
+    def _tail(self, host_frames, routed, cfg, angle, cols):
+        """The host engine's hits [Ni, 4] of each frame over the plan's
+        host scales, in scan order (None without host scales)."""
+        scales = routed.host_scales
+        if not scales.size:
+            return None
+        _, rows, dim = host_frames.shape
+        return [self.native.run_scales(
+            fr, rows, cols, scales, dim=dim,
+            shift_factor=cfg["shift_factor"], angle=angle)
+            for fr in host_frames]
+
+    def _dispatch(self, frames, slot: _Slot, cfg: dict, angle: float = 0.0,
+                  cols: int | None = None, download: bool = True,
+                  host_frames=None) -> _Ticket:
         """Async half: the upload, the cascade launches for all frames and
         scales, the hit compaction and the download of the packed hit lists
-        are all enqueued without waiting for the device. frames are
-        [B, rows, dim] with `cols` <= dim real columns (default dim).
-        With download=False the dispatch stops at `compact_hits`: the
-        ticket's `packed` is the device's f32 [B, 1 + 2*cap] list, with the
-        plan's device `coords` beside it, and nothing is waited for or
-        copied back (FaceDetector.detect_stream_device)."""
+        are all enqueued without waiting for the device; then the host
+        engine scans the host scales (host tail), overlapped with the card,
+        on `host_frames` (default: `frames`, downloaded if on the card).
+        frames are [B, rows, dim] with `cols` <= dim real columns (default
+        dim), at `angle` in turns. With download=False the dispatch stops
+        at `compact_hits`: the ticket's `packed` is the device's f32
+        [B, 1 + 2*cap] list, with the plan's device `coords` beside it,
+        and nothing is waited for or copied back
+        (FaceDetector.detect_stream_device)."""
         b, rows, dim = frames.shape
         cols = dim if cols is None else cols
         routed, base, scale, coords = self._plan_entry(
-            rows, cols, **cfg, angle_idx=angle_idx)
+            rows, cols, **cfg, angle_idx=angle_index(angle))
         cap = self.HIT_CAPACITY
         ticket = _Ticket(plan=routed.windows, n_frames=b, cap=cap, cols=cols)
         if routed.windows.num_windows == 0:  # frame smaller than min face
@@ -276,22 +354,25 @@ class FaceCascade:
         staging, packed_host = slot.buffers(b, rows, dim, cap)
         ticket.frames = self._upload(frames, staging)
         ticket.q = self._scores(ticket.frames, routed, base, scale,
-                                angle_idx, cols)
+                                angle_index(angle), cols)
         packed = compact_hits(ticket.q, cap)
         if not download:
             ticket.packed, ticket.coords = packed, coords
-            return ticket
-        packed_host.copy_(packed, non_blocking=True)
-        ticket.packed = packed_host
-        if self.device.type == "cuda":
-            ticket.event = torch.cuda.Event()
-            ticket.event.record(torch.cuda.current_stream(self.device))
+        else:
+            packed_host.copy_(packed, non_blocking=True)
+            ticket.packed = packed_host
+            if self.device.type == "cuda":
+                ticket.event = torch.cuda.Event()
+                ticket.event.record(torch.cuda.current_stream(self.device))
+        if self.host_tail:
+            ticket.tail = self._tail(self._host_frames(
+                frames if host_frames is None else host_frames),
+                routed, cfg, angle, cols)
         return ticket
 
     def _collect(self, ticket: _Ticket) -> list[np.ndarray]:
-        """Blocking half: wait for the packed hit lists, decode per frame.
-        The hits are already in scan order (one score vector over the
-        plan's windows, no host tail to merge), so no sort is needed."""
+        """Blocking half: wait for the packed hit lists, decode per frame
+        and merge each frame's host tail hits into scan order."""
         if ticket.q is None:
             return [np.zeros((0, 4), np.float64)
                     for _ in range(ticket.n_frames)]
@@ -309,12 +390,15 @@ class FaceCascade:
             else:
                 idx = packed[i, 1:1 + count].astype(np.int64)
                 qv = packed[i, 1 + cap:1 + cap + count]
-            out.append(np.stack([
+            dets = np.stack([
                 plan.rows_w[idx].astype(np.float64),
                 plan.cols_w[idx].astype(np.float64),
                 plan.scale_w[idx].astype(np.float64),
                 qv.astype(np.float64),
-            ], axis=1))
+            ], axis=1)
+            if ticket.tail is not None and ticket.tail[i].shape[0]:
+                dets = merge_scan_order(dets, ticket.tail[i])
+            out.append(dets)
         return out
 
     @staticmethod
@@ -350,7 +434,10 @@ class FaceCascade:
 
         Returns (host coords int32 [W, 3] = (row, col, scale),
         scores f32 [W]) with -1 for rejected windows; marked windows are
-        finished first, so no score is PREFIX_MARK."""
+        finished first, so no score is PREFIX_MARK. With the host tail the
+        engine scores the host scales' windows (`classify_batch`, at the
+        raw angle, as its scan reads them), so the positive scores are the
+        hits of `run_cascade`."""
         a = angle_index(angle)
         pixels, dim = self._layout(pixels, rows, cols, dim, a)
         routed, base, scale = self._plan(
@@ -361,9 +448,16 @@ class FaceCascade:
         if plan.num_windows == 0:
             return coords, np.zeros(0, np.float32)
         staging, _ = self._single.buffers(1, rows, dim, self.HIT_CAPACITY)
-        frames = self._upload(self._as_frames(pixels, rows, dim), staging)
-        q = self._scores(frames, routed, base, scale, a, cols)
-        return coords, q[0].cpu().numpy()
+        host = self._as_frames(pixels, rows, dim)
+        frames = self._upload(host, staging)
+        q = self._scores(frames, routed, base, scale, a, cols)[0]
+        q = q.cpu().numpy()
+        if routed.host_ranges:
+            pix = self._host_frames(host)[0]
+            for lo, hi in routed.host_ranges:
+                q[lo:hi] = self.native.classify_batch(pix, rows, dim,
+                                                      coords[lo:hi], angle)
+        return coords, q
 
     def sparse_hits(self, pixels, rows: int, cols: int, *,
                     min_size: int = 20, max_size: int = 1000,
@@ -375,7 +469,7 @@ class FaceCascade:
         cfg = self._cfg(min_size, max_size, shift_factor, scale_factor)
         return self._collect(self._dispatch(
             self._as_frames(pixels, rows, cols), self._single, cfg,
-            angle_index(angle)))[0]
+            angle))[0]
 
     def sparse_hits_batch(self, frames, *, min_size: int = 20,
                           max_size: int = 1000, shift_factor: float = 0.1,
@@ -389,7 +483,7 @@ class FaceCascade:
             raise ValueError(f"frames must be [B, rows, cols], got "
                              f"{tuple(frames.shape)}")
         return self._collect(self._dispatch(frames, self._batch, cfg,
-                                            angle_index(angle)))
+                                            angle))
 
     def stream_hits(self, frames, *, min_size: int = 20,
                     max_size: int = 1000, shift_factor: float = 0.1,
@@ -402,14 +496,14 @@ class FaceCascade:
         which has been collected by then. Yields per-frame [Ni, 4] hit
         arrays in input order."""
         cfg = self._cfg(min_size, max_size, shift_factor, scale_factor)
-        a = angle_index(angle)
         depth = max(1, int(depth))
         ring = [_Slot(self.device) for _ in range(depth)]
         inflight: collections.deque = collections.deque()
         for k, frame in enumerate(frames):
             rows, cols = frame.shape[-2], frame.shape[-1]
             inflight.append(self._dispatch(
-                self._as_frames(frame, rows, cols), ring[k % depth], cfg, a))
+                self._as_frames(frame, rows, cols), ring[k % depth], cfg,
+                angle))
             if len(inflight) >= depth:
                 yield self._collect(inflight.popleft())[0]
         while inflight:
@@ -424,11 +518,11 @@ class FaceCascade:
         in the reference's scan order. A row stride `dim` > cols is
         de-strided exactly first, except for a rotated pass on a tall frame,
         which reads through the stride (keeps_stride)."""
-        a = angle_index(angle)
-        pixels, dim = self._layout(pixels, rows, cols, dim, a)
+        pixels, dim = self._layout(pixels, rows, cols, dim,
+                                   angle_index(angle))
         cfg = self._cfg(min_size, max_size, shift_factor, scale_factor)
         return self._collect(self._dispatch(
-            self._as_frames(pixels, rows, dim), self._single, cfg, a,
+            self._as_frames(pixels, rows, dim), self._single, cfg, angle,
             cols))[0]
 
     def run_cascade_sweep(self, pixels, rows: int, cols: int, angles, *,
@@ -438,17 +532,20 @@ class FaceCascade:
         """In-plane rotated detection sweep: the full pyramid at every
         angle, concatenated as [N, 5] rows (row, col, scale, q, angle). The
         frame is uploaded once and every angle's launches are enqueued
-        before the first collect. Cluster the result with a small IoU
+        before the first collect (with the host tail, each angle's host
+        scan runs after its launches). Cluster the result with a small IoU
         threshold to merge the same face found at neighbouring angles."""
         cfg = self._cfg(min_size, max_size, shift_factor, scale_factor)
         angles = [max(float(a), 0.0) for a in angles]
         if not angles:
             return np.zeros((0, 5), np.float64)
-        frames = self._as_frames(pixels, rows, cols)
+        host = self._as_frames(pixels, rows, cols)
+        if self.host_tail:
+            host = self._host_frames(host)
         staging, _ = self._single.buffers(1, rows, cols, self.HIT_CAPACITY)
-        frames = self._upload(frames, staging)
-        tickets = [self._dispatch(frames, _Slot(self.device), cfg,
-                                  angle_index(a)) for a in angles]
+        frames = self._upload(host, staging)
+        tickets = [self._dispatch(frames, _Slot(self.device), cfg, a,
+                                  host_frames=host) for a in angles]
         parts = []
         for a, ticket in zip(angles, tickets):
             dets = self._collect(ticket)[0]

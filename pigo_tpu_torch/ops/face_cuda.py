@@ -18,17 +18,21 @@ Each reads the frame upright or rotated (`angle_idx` > 0).
 Routing (`route_plan`, the counterpart of build_dense_plan's per-scale
 routing, face_pallas.py:405-431 and :483-488): in tree-prefix mode a scale
 with fewer than TAIL_MIN_WINDOWS windows is a prefix scale; every other
-scale is dense, at the tree cap when one is set. The JAX package's VMEM
-budgets and decimation search are TPU layout and have no counterpart. Nor
-has `prefix_groups` (face_pallas.py:982), which splits the prefix scales
-into groups under VMEM and SMEM budgets: here all prefix windows of a frame
-batch go to one `face_prefix` launch. Nor has PREFIX_MIN_WINDOWS, which
-sends the smallest tail scales to the host engine there (0, none, by
-default): the port has no host tail engine, so a scale the JAX package
-would hand to it runs on the card (dense, or prefix in tree-prefix mode).
-Window counts only fall as the scale grows, so the prefix scales are a
-suffix of the scan order, and one score vector in scan order takes every
-kernel's output in place.
+scale is dense, at the tree cap when one is set. With `host_tail=True` the
+JAX package's host tail rule picks host scales instead: every scale below
+TAIL_MIN_WINDOWS windows, then the smallest remaining scales, sorted by
+(windows, scale), while the host's share of the plan's windows stays at or
+below HOST_SHARE_TARGET (promotion stops at the first scale that would
+overshoot). A host scale gets no launch; the face stage scans it with the
+host engine (models/face.py) and its windows' scores stay -1 on the card.
+The host tail excludes tree-prefix mode (in the JAX package a prefix plan
+leaves no scale to the host: PREFIX_MIN_WINDOWS = 0) and combines with the
+tree cap. The JAX package's VMEM budgets and decimation search are TPU
+layout and have no counterpart. Nor has `prefix_groups`
+(face_pallas.py:982), which splits the prefix scales into groups under
+VMEM and SMEM budgets: here all prefix windows of a frame batch go to one
+`face_prefix` launch. One score vector in scan order takes every kernel's
+output in place, whichever scales each kernel reads.
 
 On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
 launches its kernel or raises.
@@ -54,9 +58,13 @@ face_cascade_launches = 0
 face_prefix_launches = 0
 face_finish_launches = 0
 
-# Routing constants (pigo_tpu/ops/face_pallas.py:83, :113-154). Plans are
-# cached per FaceCascade, so a changed value takes effect on new instances.
+# Routing constants (pigo_tpu/ops/face_pallas.py:83, :107, :113-154). Plans
+# are cached per FaceCascade, so a changed value takes effect on new
+# instances. TAIL_MIN_WINDOWS and HOST_SHARE_TARGET are the JAX package's
+# values, tuned on a TPU v5e against its host engine; no H100 measurement
+# chose them (there is no benchmark cell to choose them from yet).
 TAIL_MIN_WINDOWS = 6144  # scales below this many windows are tail scales
+HOST_SHARE_TARGET = 0.3  # host tail: the most of a plan's windows it scans
 PREFIX_TREES = 32  # trees a prefix scale is evaluated for before the finish
 
 # Dynamic shared memory `face_prefix` asks for per block: the staged
@@ -87,40 +95,82 @@ class Segment:
 class RoutedPlan:
     """A window plan with its per-scale routes (host numpy).
 
-    prefix / t_limits: bool / int [S] per scale of windows.scales;
-    segments: the launches, dense ones first, then the one prefix launch;
-    finish: the window range [lo, hi) holding every window that can be
-    marked (None when no scale is capped or prefix)."""
+    prefix / t_limits / host: bool / int / bool [S] per scale of
+    windows.scales; segments: the launches, dense ones first, then the one
+    prefix launch; finish: the window range [lo, hi) holding every window
+    that can be marked (None when no scale is capped or prefix);
+    host_ranges: the window ranges [lo, hi) of runs of host scales, whose
+    scores the card sets to -1."""
 
     windows: WindowPlan
     prefix: np.ndarray
     t_limits: np.ndarray
     segments: tuple[Segment, ...]
     finish: tuple[int, int] | None
+    host: np.ndarray
+    host_ranges: tuple[tuple[int, int], ...]
+
+    @property
+    def host_scales(self) -> np.ndarray:
+        """int32 [H]: the scales the host engine scans, ascending."""
+        return self.windows.scales[self.host]
+
+
+def host_tail_scales(counts: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """bool [S]: the host scales of the JAX package's host tail rule
+    (module docstring; face_pallas.py:405-431) for per-scale window counts
+    `counts` of pyramid scales `scales`."""
+    host = counts < TAIL_MIN_WINDOWS
+    total = int(counts.sum())
+    if total == 0:
+        return host
+    cum = int(counts[host].sum())
+    for k in sorted(np.flatnonzero(~host),
+                    key=lambda k: (int(counts[k]), int(scales[k]))):
+        if (cum + int(counts[k])) / total > HOST_SHARE_TARGET:
+            break
+        host[k] = True
+        cum += int(counts[k])
+    return host
 
 
 def route_plan(plan: WindowPlan, n_trees: int, *, prefix: bool,
-               tree_cap: int = 0) -> RoutedPlan:
-    """Route each scale of `plan` (module docstring)."""
+               tree_cap: int = 0, host_tail: bool = False) -> RoutedPlan:
+    """Route each scale of `plan` (module docstring). Raises ValueError for
+    host_tail with prefix."""
+    if host_tail and prefix:
+        raise ValueError("host_tail excludes prefix: a tree-prefix plan "
+                         "leaves no scale to the host engine")
     cap = resolved_cap(tree_cap, n_trees)
     counts = np.bincount(plan.scale_idx, minlength=plan.scales.size)
+    host = (host_tail_scales(counts, plan.scales) if host_tail
+            else np.zeros(plan.scales.size, bool))
     is_prefix = np.array(
         [prefix and PREFIX_TREES < n_trees and w < TAIL_MIN_WINDOWS
          for w in counts], bool)
     t_limits = np.where(is_prefix, PREFIX_TREES, cap or n_trees)
     starts = np.concatenate([[0], np.cumsum(counts)])
     runs: list[Segment] = []
+    host_ranges: list[tuple[int, int]] = []
     for k in range(plan.scales.size):
         lo, hi = int(starts[k]), int(starts[k + 1])
+        if host[k]:
+            if host_ranges and host_ranges[-1][1] == lo:
+                host_ranges[-1] = (host_ranges[-1][0], hi)
+            else:
+                host_ranges.append((lo, hi))
+            continue
         key = (bool(is_prefix[k]), int(t_limits[k]))
-        if runs and (runs[-1].prefix, runs[-1].t_limit) == key:
+        if runs and (runs[-1].prefix, runs[-1].t_limit) == key \
+                and runs[-1].hi == lo:
             runs[-1] = dataclasses.replace(runs[-1], hi=hi)
         else:
             runs.append(Segment(lo, hi, *key))
     marked = [s for s in runs if s.t_limit < n_trees]
     finish = (marked[0].lo, marked[-1].hi) if marked else None
     segments = tuple(sorted(runs, key=lambda s: s.prefix))  # A, then B
-    return RoutedPlan(plan, is_prefix, t_limits, segments, finish)
+    return RoutedPlan(plan, is_prefix, t_limits, segments, finish, host,
+                      tuple(host_ranges))
 
 
 def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Build-on-first-use for the port's CUDA kernels.
+"""Build-on-first-use for the port's CUDA kernels and its host engine.
 
-Each library compiles with nvcc from `csrc/<name>.cu` (and the further
+Each CUDA library compiles with nvcc from `csrc/<name>.cu` (and the further
 sources SOURCES lists for it) into a shared library with a plain C
 interface and loads with ctypes (no PyTorch headers, so a build takes
 seconds). Target `sm_90a` (Hopper). `--fmad=false` keeps every f32 product
@@ -11,6 +11,14 @@ of the sources, the shared headers (`csrc/*.cuh`) and the flags, so an
 edited source or header never loads a stale build. The
 compiler's `-Xptxas -v` report (registers, spills) is kept beside each
 library as `<name>.ptxas.txt`.
+
+The host C++ engine (`native/pigo_native.cpp`) compiles with g++ and
+NATIVE_FLAGS, the flags of the JAX package's native/Makefile, into the
+same directory, named by a hash of its source and the flags
+(`build_native`). `-ffp-contract=off` keeps its f32 products and sums
+rounded separately, as the reference does. It never builds into the
+repository's `native/`, where the JAX package builds and loads its own
+library.
 """
 
 from __future__ import annotations
@@ -30,6 +38,12 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+# The host engine: its source, the compiler and its flags (native/Makefile).
+NATIVE_SOURCE = os.path.join(PKG_DIR, "native", "pigo_native.cpp")
+GXX = "g++"
+NATIVE_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
+                "-pthread", "-ffp-contract=off"]
 
 # Libraries built from more than one source: name -> sources. The face
 # kernels' entry points share one library and one binder (ops/face_cuda.py).
@@ -109,3 +123,31 @@ def load(name: str, bind) -> ctypes.CDLL:
             bind(lib)
             _libs[name] = lib
         return lib
+
+
+def native_library_path() -> str:
+    digest = hashlib.sha256(" ".join(NATIVE_FLAGS).encode())
+    with open(NATIVE_SOURCE, "rb") as fh:
+        digest.update(fh.read())
+    return os.path.join(BUILD_DIR,
+                        f"libpigo_native-{digest.hexdigest()[:12]}.so")
+
+
+def build_native() -> str:
+    """Compile the host engine with GXX unless a build of this exact source
+    exists. Returns the library path; raises RuntimeError with the
+    compiler's output when the compiler is missing or fails."""
+    so = native_library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    try:
+        proc = subprocess.run([GXX, *NATIVE_FLAGS, "-o", tmp, NATIVE_SOURCE],
+                              capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{GXX} could not run: {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"{GXX} failed for {so}:\n{proc.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    return so

@@ -540,3 +540,32 @@ def test_detect_stream_device_matches_detect_on_card(cuda_device, gray):
                 for r in res] == [[p.scale for p in r.eyes + r.landmarks]
                                   + [r.face.q] for r in want]
         assert len(res) == 1 and len(res[0].landmarks) == 15
+
+
+def test_host_tail_on_card_equals_all_card(cuda_device, gray):
+    """FaceCascade(host_tail=True) on the card equals the all-card
+    cascade on sample frames (stream, batch, upright and at 0.07) with one
+    face_cascade launch a frame, and a host-tail detector's
+    detect_stream_device equals its detect."""
+    frames = [np.roll(gray, i, axis=1) for i in range(3)]
+    ht = FaceCascade(host_tail=True)
+    fc = FaceCascade()
+    for angle in (0.0, 0.07):
+        before = face_cuda.face_cascade_launches
+        got = list(ht.stream_hits(frames, angle=angle, depth=2, **HEADLINE))
+        assert face_cuda.face_cascade_launches == before + len(frames)
+        want = list(fc.stream_hits(frames, angle=angle, depth=2, **HEADLINE))
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    for a, b in zip(ht.sparse_hits_batch(np.stack(frames), **HEADLINE),
+                    fc.sparse_hits_batch(np.stack(frames), **HEADLINE)):
+        assert np.array_equal(a, b)
+    det = FaceDetector(host_tail=True)
+    params = CascadeParams(20, 1000, 0.2, 1.1)
+    got = list(det.detect_stream_device(frames, params, iou_threshold=0.1,
+                                        seed=3, depth=2))
+    for i, (frame, res) in enumerate(zip(frames, got)):
+        want = det.detect(frame, 400, 320, params, iou_threshold=0.1,
+                          generator=torch.Generator().manual_seed(3 + i))
+        assert [r.to_json_dict() for r in res] == \
+            [r.to_json_dict() for r in want]
+        assert len(res) == 1

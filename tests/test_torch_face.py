@@ -270,20 +270,19 @@ def test_loaders_and_cluster_export(face_forest):
 
 
 def test_package_imports_without_jax_pigo_tpu_or_pillow():
-    """`import pigo_tpu_torch` (and every module of it) loads no jax, no
-    pigo_tpu module and no Pillow. Run in a fresh interpreter: this one has
-    imported jax already."""
+    """`import pigo_tpu_torch` and every module of it (walked with
+    pkgutil.walk_packages: the host engine, the CLI, the drawing and the
+    tools among them) load no jax, no pigo_tpu module and no Pillow. Run
+    in a fresh interpreter: this one has imported jax already."""
     code = r"""
-import sys
+import importlib, pkgutil, sys
 sys.modules["PIL"] = None  # importing Pillow would fail
 import pigo_tpu_torch
-import pigo_tpu_torch.cascade, pigo_tpu_torch.convert, pigo_tpu_torch.io.image
-import pigo_tpu_torch.ops.face_cuda, pigo_tpu_torch.utils.build
-import pigo_tpu_torch.utils.profiling
-import pigo_tpu_torch.models.pupil, pigo_tpu_torch.models.landmark
-import pigo_tpu_torch.detector, pigo_tpu_torch.ops.pupil_dense
-import pigo_tpu_torch.ops.pupil_cuda
-import pigo_tpu_torch.tools.face_sweep, pigo_tpu_torch.utils.device
+names = [m.name for m in pkgutil.walk_packages(pigo_tpu_torch.__path__,
+                                               "pigo_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print("MODULES", len(names), sorted(names))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "pigo_tpu" or m.startswith("pigo_tpu."))
@@ -294,3 +293,6 @@ print("BAD", bad)
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
+    for name in ("native", "cli", "io.draw", "utils.spinner", "detector",
+                 "tools.face_sweep", "ops.cluster_device"):
+        assert f"'pigo_tpu_torch.{name}'" in proc.stdout, name
