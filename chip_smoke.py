@@ -47,10 +47,13 @@ the final status line):
      streamed ms/frame, a serial face / cluster / post breakdown, and a
      torch.profiler pass for the device's busy time and idle share;
   5. cluster kernel and device detector — the cluster kernel against its
-     plain version and the host clustering, bit for bit, on the real hit
-     lists of both frames, seeded random sets up to the capacity with
-     equal-q ties and a pair at the IoU threshold, with its times and
-     bound; then FaceDetector.detect_stream_device, every dispatch under
+     plain version and the host clustering, bit for bit, one launch a
+     call, on the real hit lists of both frames, seeded random sets up to
+     the capacity with equal-q ties (and one at the largest capacity), and
+     the edge sets of tools/cluster_sets.py (thresholds -0.1 to 1.0,
+     scale-0 entries, fractional coordinates, holes, the bit-word edges,
+     identical entries, equal q, pairs at the threshold), each with its
+     entries, seeds, time, bound and plain time; then FaceDetector.detect_stream_device, every dispatch under
      torch.cuda.set_sync_debug_mode("error"): both streams and the sample
      at angle 0.07 equal to per-frame detect, one frame through each rung
      of the ladder, the launches and host waits per frame, and its
@@ -125,10 +128,7 @@ PEAK_F64_OPS_PER_S = 34e12  # f64 outside the tensor cores
 # bound sums, two min, two max, two differences, two clamps, three
 # products, a sum, a difference, a quotient, a compare)
 IOU_OPS = 25
-# The cluster kernel's seeded random sets (its capacity in the device
-# detector, FaceCascade.HIT_CAPACITY, among them), and the frames of the
-# rotated device stream
-CLUSTER_SETS = (0, 1, 60, 312, 4096)
+# The frames of the rotated device stream
 ROT_FRAMES = 8
 
 
@@ -1049,76 +1049,74 @@ def phase_cluster_kernel(gray, hd, golden, det, card) -> dict:
     """The cluster kernel against its plain version on the card, bit for
     bit, at the device detector's capacity (FaceCascade.HIT_CAPACITY): the
     real hit lists of the sample frame (golden configuration) and the
-    1080p tiling, seeded random sets of CLUSTER_SETS entries with equal-q
-    ties, and a pair whose IoU is exactly the threshold in f64; each also
-    equal to the host clustering. Times and bounds on the real lists."""
+    1080p tiling, the seeded random sets of tools/cluster_sets.py (0, 1,
+    60, 312 and 4096 entries, equal-q ties), and its edge sets of tools/cluster_sets.py (thresholds
+    -0.1 to 1.0, scale-0 entries, fractional coordinates, holes in the
+    valid mask and a count below the rows, the bit-word edges, identical
+    entries, equal q, the pairs at the threshold); each also equal to the
+    host clustering, one launch a call. Then the random set at
+    MAX_CAPACITY slots. Every set is timed, with its bound and the plain
+    version's time."""
     import torch
 
     from pigo_tpu_torch.ops import cluster_device as cd
     from pigo_tpu_torch.ops.cluster import cluster_detections
+    from pigo_tpu_torch.tools import cluster_sets
     from pigo_tpu_torch.utils.device import cuda_ms
 
     cap = det.face.HIT_CAPACITY
     dev = det.device
     _, iou, streams = detector_streams(gray, hd, golden)
-    rng = np.random.default_rng(SEED)
     cases = []
     for name, frames, prm, _ in streams:
         hits = det.face.run_cascade(
             frames[0], *frames[0].shape, min_size=prm.min_size,
             max_size=prm.max_size, shift_factor=prm.shift_factor,
             scale_factor=prm.scale_factor)
-        cases.append((name, hits, iou))
-    for n in CLUSTER_SETS:
-        rows = rng.integers(20, 1060, n)
-        cols = rng.integers(20, 1900, n)
-        scales = rng.choice(np.arange(40, 200, 7), n)
-        q = rng.choice(np.float32([0.5, 1.25, 2.0, 3.75, 5.5, 9.0]), n)
-        cases.append((f"random_{n}", np.stack([rows, cols, scales, q], 1),
-                      0.2))
-    # IoU 12 / 60: exactly 0.2 in f64, so the two stay apart
-    cases.append(("at_threshold", np.array([[10, 10, 6, 3.0],
-                                            [10, 14, 6, 2.0]]), 0.2))
+        cases.append((cluster_sets.full(name, hits, iou), cap))
+    cases += [(cs, cap) for cs in cluster_sets.random_sets(cap)
+              + cluster_sets.edge_sets(cap)]
+    cases.append((cluster_sets.random_sets(cd.MAX_CAPACITY)[-1],
+                  cd.MAX_CAPACITY))
     stats = {"max_abs_err": 0.0, "cases": {}}
-    for name, dets, thr in cases:
-        n = dets.shape[0]
-        buf = np.zeros((cap, 4), np.float32)
-        buf[:n] = dets
-        args = (torch.from_numpy(buf).to(dev),
-                torch.arange(cap, device=dev) < n,
-                torch.tensor([n], dtype=torch.int32, device=dev), thr)
+    for cs, slots in cases:
+        args = (*cluster_sets.buffers(cs, slots, dev), cs.iou)
         before = cd.cluster_device_launches
-        got, gvalid = cd.cluster_device(*args, capacity=cap)
+        got, gvalid = cd.cluster_device(*args, capacity=slots)
         torch.cuda.synchronize()
         check(cd.cluster_device_launches == before + 1,
-              f"cluster_device {name}: no launch counted")
+              f"cluster_device {cs.name}: not one launch counted")
         plain_ms, (want, wvalid) = plain_run(
             lambda: cd.cluster_plain(*args))
         stats["max_abs_err"] = max(stats["max_abs_err"],
                                    float((got - want).abs().max()))
         check(torch.equal(gvalid, wvalid) and torch.equal(
             got.view(torch.int32), want.view(torch.int32)),
-            f"cluster_device {name}: kernel != plain version")
-        host = cluster_detections(dets.astype(np.float64), thr)
-        check(np.array_equal(got[gvalid].cpu().numpy(),
-                             host.astype(np.float32)),
-              f"cluster_device {name}: != the host clustering")
-        seeds = int(gvalid.sum())
-        check(name != "at_threshold" or seeds == 2,
-              "the pair at the IoU threshold was joined")
-        case = dict(entries=n, clusters=seeds, iou=thr, plain_ms=plain_ms)
-        if name in ("sample", "hd1080"):
-            case["ms"] = cuda_ms(lambda: cd.cluster_device(
-                *args, capacity=cap), 200, queue_ahead=True)
-            # bytes: the count, n rows of dets and valid read, every slot
-            # of both outputs written; operations: every seed's IoU test
-            # against every entry, in f64
-            b_s = (4 + 17 * n + 17 * cap) / PEAK_BYTES_PER_S
-            o_s = seeds * n * IOU_OPS / PEAK_F64_OPS_PER_S
-            case["bound_ms"] = max(b_s, o_s) * 1e3
-            case["bound_by"] = "bytes" if b_s >= o_s else "operations"
-        stats["cases"][name] = case
-        emit("cluster_kernel", case=name, card=card, **case)
+            f"cluster_device {cs.name}: kernel != plain version")
+        entries = cs.entries()
+        with np.errstate(invalid="ignore"):  # 0 / 0 of two scale-0 boxes
+            host = cluster_detections(entries, cs.iou).astype(np.float32)
+        check(np.array_equal(got[gvalid].cpu().numpy().view(np.int32),
+                             host.view(np.int32)),
+              f"cluster_device {cs.name}: != the host clustering")
+        check(not cs.name.startswith("at_threshold")
+              or int(gvalid.sum()) == 2,
+              "a pair at the IoU threshold was joined")
+        n = entries.shape[0]
+        seeds = cluster_sets.seed_count(entries, cs.iou)
+        ms = cuda_ms(lambda: cd.cluster_device(*args, capacity=slots), 100,
+                     queue_ahead=True)
+        # bytes: the count, `count` rows of dets and valid read, every
+        # slot of both outputs written; operations: every seed's IoU test
+        # against every entry, in f64
+        b_s = (4 + 17 * cs.count + 17 * slots) / PEAK_BYTES_PER_S
+        o_s = seeds * n * IOU_OPS / PEAK_F64_OPS_PER_S
+        case = dict(entries=n, seeds=seeds, clusters=int(gvalid.sum()),
+                    iou=cs.iou, capacity=slots, ms=ms, plain_ms=plain_ms,
+                    bound_ms=max(b_s, o_s) * 1e3,
+                    bound_by="bytes" if b_s >= o_s else "operations")
+        stats["cases"][cs.name] = case
+        emit("cluster_kernel", case=cs.name, card=card, **case)
     return stats
 
 
@@ -1778,14 +1776,14 @@ def main() -> int:
         **pick(cstats["cases"]["sample"]),
         "library_ms": None,
         "check": "bitwise equal to ops/cluster_device.cluster_plain and "
-                 "to the host ops/cluster.cluster_detections on the real "
-                 "hit lists, random sets of " + ", ".join(
-                     map(str, CLUSTER_SETS)) + " entries with equal-q "
-                 "ties, and a pair at the IoU threshold",
+                 "to the host ops/cluster.cluster_detections, one launch a "
+                 "call, on the real hit lists and the seeded sets of "
+                 "tools/cluster_sets.py (random_sets at capacity 4096, and "
+                 "8192 entries at 8192; edge_sets)",
         "ms_is": "the sample frame's hit list at capacity 4096",
-        "per_shape": {k: pick(cstats["cases"][k],
-                              TIME_KEYS + ("entries", "clusters"))
-                      for k in ("sample", "hd1080")},
+        "per_shape": {k: pick(v, TIME_KEYS + ("entries", "seeds",
+                                              "clusters"))
+                      for k, v in cstats["cases"].items()},
     }]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

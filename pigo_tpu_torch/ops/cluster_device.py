@@ -17,7 +17,8 @@ position i of the sorted order goes to slot i, so compacting the valid
 slots gives the host function's output in its order.
 
 On a CPU tensor `cluster_device` runs the plain version; on a CUDA tensor
-it launches csrc/cluster_device.cu (one thread block) or raises.
+it launches csrc/cluster_device.cu (one cooperative launch over the card,
+with a scratch buffer from the caching allocator) or raises.
 """
 
 from __future__ import annotations
@@ -34,9 +35,10 @@ from pigo_tpu_torch.utils.device import resolve_device
 # reset it to 0 and read it to show that a run went through the kernel.
 cluster_device_launches = 0
 
-# Slots one call takes: the kernel keeps 21 B of shared memory per slot
-# (csrc/cluster_device.cu), 172 KB at this capacity, under the H100's
-# 227 KB a block.
+# Slots one call takes: a row of the kernel's membership matrix holds at
+# most 256 words (csrc/cluster_device.cu kClusterMaxWords), and no capacity
+# up to this one asks for more shared memory than the H100's 227 KB a
+# block (a static_assert there); the scratch buffer is 9.0 MB here.
 MAX_CAPACITY = 8192
 
 
@@ -44,7 +46,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.pigo_cluster_device.restype = i
     lib.pigo_cluster_device.argtypes = [vp, vp, vp, i, ctypes.c_double, vp,
-                                        vp, vp]
+                                        vp, vp, vp]
+    lib.pigo_cluster_scratch_bytes.restype = ctypes.c_longlong
+    lib.pigo_cluster_scratch_bytes.argtypes = [i]
     lib.pigo_cuda_error_string.restype = ctypes.c_char_p
     lib.pigo_cuda_error_string.argtypes = [i]
 
@@ -135,12 +139,15 @@ def cluster_device(dets: torch.Tensor, valid: torch.Tensor,
     if capacity == 0:
         return out, out_valid
     lib = load_kernel()
+    # contents ignored: the kernel initialises what it reads
+    scratch = torch.empty(lib.pigo_cluster_scratch_bytes(capacity),
+                          dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pigo_cluster_device(
             dets.data_ptr(), valid.data_ptr(), count.data_ptr(), capacity,
             float(iou_threshold), out.data_ptr(), out_valid.data_ptr(),
-            stream)
+            scratch.data_ptr(), stream)
     if rc != 0:
         msg = lib.pigo_cuda_error_string(rc).decode()
         raise RuntimeError(f"cluster_device launch failed: {msg} ({rc})")

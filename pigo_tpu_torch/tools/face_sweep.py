@@ -80,11 +80,11 @@ LIBRARIES = ("face_cascade", "pupil_walk")
 SWEEP_DIR = os.path.join(build.BUILD_DIR, "sweep")
 
 
-def variant_sources(name: str, consts: dict[str, int] | None,
-                    csrc: str) -> dict[str, list[str]]:
-    """Each library's sources for one variant: csrc's own, or a copy under
-    SWEEP_DIR with each `constexpr int NAME = ...;` in `consts` set to its
-    value in the one source or header of the copy that defines it."""
+def variant_sources(name: str, consts: dict[str, int] | None, csrc: str,
+                    libraries=LIBRARIES) -> dict[str, list[str]]:
+    """Each of `libraries`' sources for one variant: csrc's own, or a copy
+    under SWEEP_DIR with each `constexpr int NAME = ...;` in `consts` set to
+    its value in the one source or header of the copy that defines it."""
     if consts is not None:
         out = os.path.join(SWEEP_DIR, name)
         shutil.rmtree(out, ignore_errors=True)
@@ -108,7 +108,7 @@ def variant_sources(name: str, consts: dict[str, int] | None,
                 fh.write(text)
         csrc = out
     return {lib: [os.path.join(csrc, f) for f in build.sources(lib)]
-            for lib in LIBRARIES}
+            for lib in libraries}
 
 
 def build_variants(variants: dict[str, tuple[dict | None, str]]):

@@ -468,46 +468,45 @@ def test_face_detector_on_card_matches_golden(cuda_device, gray):
         w[2:4] for w in want["landmarks"]]
 
 
-def _cluster_sets(cap):
-    """The smoke's seeded random sets (0, 1, 60, 312 and `cap` entries,
-    equal-q ties) and a pair whose IoU is exactly 0.2 in f64."""
-    rng = np.random.default_rng(0)
-    sets = []
-    for n in (0, 1, 60, 312, cap):
-        rows = rng.integers(20, 1060, n)
-        cols = rng.integers(20, 1900, n)
-        scales = rng.choice(np.arange(40, 200, 7), n)
-        q = rng.choice(np.float32([0.5, 1.25, 2.0, 3.75, 5.5, 9.0]), n)
-        sets.append(np.stack([rows, cols, scales, q], 1))
-    sets.append(np.array([[10, 10, 6, 3.0], [10, 14, 6, 2.0]]))
-    return sets
-
-
 def test_cluster_device_matches_plain_on_card(cuda_device):
     """The cluster kernel is bit-equal to its plain version and to the
-    host clustering at the detector's capacity, one launch a call."""
+    host clustering at the detector's capacity, one launch a call: the
+    smoke's random sets and the edge sets of tools/cluster_sets.py (every
+    threshold from -0.1 to 1.0, scale-0 entries, fractional coordinates,
+    holes in the valid mask and a count below the rows, the bit-word edges
+    1 to 4096, identical entries, equal q, the pairs at the threshold);
+    the edge sets that fit in 64 slots, and full random sets at 4608 slots
+    (the host-tail device stream's) and at MAX_CAPACITY."""
     from pigo_tpu_torch.ops import cluster_device as cd
     from pigo_tpu_torch.ops.cluster import cluster_detections
+    from pigo_tpu_torch.tools import cluster_sets
 
     cap = FaceCascade.HIT_CAPACITY
-    for dets in _cluster_sets(cap):
-        n = dets.shape[0]
-        buf = np.zeros((cap, 4), np.float32)
-        buf[:n] = dets
-        args = (torch.from_numpy(buf).to(cuda_device),
-                torch.arange(cap, device=cuda_device) < n,
-                torch.tensor([n], dtype=torch.int32, device=cuda_device), 0.2)
+    runs = [(cs, cap) for cs in cluster_sets.random_sets(cap)
+            + cluster_sets.edge_sets(cap)]
+    # the smallest grid; the device stream's capacity with the host tail
+    # (dense and tail slots), where the kernel asks for the most shared
+    # memory; the largest rows
+    runs += [(cs, 64) for cs in cluster_sets.edge_sets(64)]
+    for slots in (4096 + 512, cd.MAX_CAPACITY):
+        runs.append((cluster_sets.random_sets(slots)[-1], slots))
+    for cs, cap in runs:
+        args = (*cluster_sets.buffers(cs, cap, cuda_device), cs.iou)
         before = cd.cluster_device_launches
         got, gvalid = cd.cluster_device(*args, capacity=cap)
-        assert cd.cluster_device_launches == before + 1
+        assert cd.cluster_device_launches == before + 1, cs.name
         want, wvalid = cd.cluster_plain(*args)
         torch.cuda.synchronize()
-        assert torch.equal(gvalid, wvalid)
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-        host = cluster_detections(dets.astype(np.float64), 0.2)
-        assert np.array_equal(got[gvalid].cpu().numpy(),
-                              host.astype(np.float32))
-        assert n != 2 or int(gvalid.sum()) == 2
+        assert torch.equal(gvalid, wvalid), cs.name
+        assert torch.equal(got.view(torch.int32),
+                           want.view(torch.int32)), cs.name
+        with np.errstate(invalid="ignore"):  # 0 / 0 of two scale-0 boxes
+            host = cluster_detections(cs.entries(), cs.iou)
+        assert np.array_equal(got[gvalid].cpu().numpy().view(np.int32),
+                              host.astype(np.float32).view(np.int32)), \
+            cs.name
+        assert not cs.name.startswith("at_threshold") or \
+            int(gvalid.sum()) == 2
 
 
 def test_detect_stream_device_matches_detect_on_card(cuda_device, gray):
