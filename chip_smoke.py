@@ -76,7 +76,20 @@ the final status line):
   9. CLI — pigo_tpu_torch.cli.detect_payload (the CLI's detection between
      decode and draw) on the committed frame as RGB, equal to
      FaceDetector.detect's payload on the card with the same seed;
-  10. kernels — one JSON line for every ported kernel, after the seconds
+  10. sharded — multi-GPU detection (pigo_tpu_torch.parallel) on the one
+     card: (a) every band of 2- and 4-rank meshes run in this process and
+     merged, against single-card sparse_hits bit for bit, at the headline
+     and the 1080p tiling, upright and at 0.07, default and prefix, and
+     at hit capacity 1 (the exact re-read), with each run's launches
+     against its bands'; (b) two gloo ranks on the card (this script
+     started twice with --sharded-worker; NCCL refuses two ranks on one
+     card): window_sharded_hits of 1080p frames and batch_hits of a
+     headline batch against sparse_hits on both ranks, one face_cascade
+     launch a frame (and a batch) each; (c) a one-rank NCCL group, the
+     phase's counted run, the same checks in both modes, then both
+     methods' ms a call beside sparse_hits and sparse_hits_batch, in
+     turns (one card shows no multi-card gain);
+  11. kernels — one JSON line for every ported kernel, after the seconds
      each phase took.
 The build also compiles the host C++ engine (g++, beside the nvcc builds).
 Any failed check exits non-zero before the status line.
@@ -88,6 +101,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import subprocess
 import sys
 import time
 import zlib
@@ -130,6 +144,14 @@ PEAK_F64_OPS_PER_S = 34e12  # f64 outside the tensor cores
 IOU_OPS = 25
 # The frames of the rotated device stream
 ROT_FRAMES = 8
+# The sharded phase: mesh sizes whose bands run in one process, the 1080p
+# frames each window-sharded run takes, the headline batch of batch_hits,
+# and the timed calls of each method
+SHARDED_NS = (2, 4)
+SHARDED_HD_FRAMES = 4
+SHARDED_BATCH = 8
+SHARDED_REPS = 10
+SHARDED_DEVICE = "cuda:0"  # the card of every rank in the sharded phase
 
 
 class SmokeFailure(RuntimeError):
@@ -1604,6 +1626,282 @@ def phase_cli(gray, det, card) -> dict:
     return out
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _call_ms(fn) -> float:
+    """Host ms of one call that ends in a host copy (so it waits for the
+    card)."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _ms_stats(ms) -> dict:
+    """Best and median of a list of host ms a call."""
+    ms = sorted(ms)
+    return {"ms_best": ms[0], "ms_median": ms[len(ms) // 2], "reps": len(ms)}
+
+
+def _sharded_frames(gray, hd):
+    """The sharded phase's inputs: SHARDED_HD_FRAMES rolled 1080p frames
+    and a batch of SHARDED_BATCH rolled headline frames."""
+    return ([np.roll(hd, i, axis=1) for i in range(SHARDED_HD_FRAMES)],
+            np.stack([np.roll(gray, i, axis=1)
+                      for i in range(SHARDED_BATCH)]))
+
+
+def _load_frames():
+    """The committed sample frame and its 1080x1920 tiling."""
+    gray = np.load(os.path.join(ROOT, "pigo_tpu_torch", "assets",
+                                "sample_gray.npy"))
+    hd = np.tile(gray, (1080 // 400 + 1, 1920 // 320 + 1))[:1080, :1920]
+    return gray, hd
+
+
+def sharded_worker(rank: int, port: int, device: str) -> int:
+    """One rank of the sharded phase's (b): `chip_smoke.py --sharded-worker
+    RANK PORT DEVICE`. It loads the kernels, joins a two-rank gloo group
+    on DEVICE, runs window_sharded_hits over the 1080p frames and
+    batch_hits of the headline batch (their launches counted), times both,
+    and prints one `RESULT` JSON line."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from pigo_tpu_torch import FaceCascade
+    from pigo_tpu_torch.ops import face_cuda
+    from pigo_tpu_torch.parallel import (ShardedFaceCascade,
+                                         init_distributed, make_mesh)
+
+    gray, hd = _load_frames()
+    hdf, batch = _sharded_frames(gray, hd)
+    fc = FaceCascade(device=device)
+    if fc.device.type == "cuda":
+        face_cuda.load_kernel()  # built by the parent: load before joining
+    check(init_distributed(f"127.0.0.1:{port}", 2, rank, device=device,
+                           backend="gloo") == 2,
+          "the gloo group is not two ranks")
+    try:
+        mesh = make_mesh(2)
+        sh = ShardedFaceCascade(mesh, fc)
+        sh.window_sharded_hits(hdf[0], *hd.shape, **HD)  # plans, uploads
+        sh.batch_hits(batch, *gray.shape, **HEADLINE)
+        dist.barrier()
+        reset_face_counts()
+        window = [sh.window_sharded_hits(f, *hd.shape, **HD) for f in hdf]
+        window_launches = face_counts()
+        reset_face_counts()
+        dets, total = sh.batch_hits(batch, *gray.shape, **HEADLINE)
+        batch_launches = face_counts()
+        win_ms = [_call_ms(lambda: sh.window_sharded_hits(
+            hdf[0], *hd.shape, **HD)) for _ in range(SHARDED_REPS)]
+        batch_ms = [_call_ms(lambda: sh.batch_hits(
+            batch, *gray.shape, **HEADLINE)) for _ in range(SHARDED_REPS)]
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    print("RESULT " + json.dumps({
+        "rank": mesh.rank, "backend": mesh.backend, "device": str(fc.device),
+        "window": [w.tolist() for w in window],
+        "batch": [d.tolist() for d in dets], "total": total,
+        "window_launches": window_launches, "batch_launches": batch_launches,
+        "window_ms": win_ms, "batch_ms": batch_ms}), flush=True)
+    return 0
+
+
+def _run_gloo_ranks(device: str) -> list:
+    """Start the two gloo ranks of (b) and return their RESULT dicts.
+    Retries with a fresh port when a rank could not bind it (the probe
+    socket closes before the ranks bind); kills both ranks on any exit."""
+    for attempt in range(3):
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-worker",
+             str(rank), str(port), device], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for rank in range(2)]
+        try:
+            results = [p.communicate(timeout=600) + (p.returncode,)
+                       for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        if all(rc == 0 for _, _, rc in results):
+            break
+        bind_race = any("address" in err.lower() for _, err, rc in results
+                        if rc != 0)
+        if not bind_race or attempt == 2:
+            out, err, rc = next(r for r in results if r[2] != 0)
+            raise SmokeFailure(f"a gloo rank exited {rc}:\n{out[-2000:]}\n"
+                               f"{err[-4000:]}")
+    outs = []
+    for out, _, _ in results:
+        lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        check(len(lines) == 1, f"a gloo rank printed no result:\n{out}")
+        outs.append(json.loads(lines[0][len("RESULT "):]))
+    return outs
+
+
+def _band_launches(sh, frame, cfg, n) -> tuple:
+    """The (face_cascade, face_prefix, face_finish) launches of every band
+    of an n-rank mesh over one frame, from band_cut (n = 1: the routing's
+    own launches)."""
+    from pigo_tpu_torch.parallel.sharded import band_cut
+
+    routed = sh._window_plan(*frame.shape, cfg)[0]
+    bands = [band_cut(routed, r, n) for r in range(n)]
+    return (sum(not s.prefix for b in bands for s in b.segments),
+            sum(s.prefix for b in bands for s in b.segments),
+            sum(b.finish is not None for b in bands))
+
+
+def phase_sharded(gray, hd, card) -> dict:
+    """Multi-GPU detection (pigo_tpu_torch.parallel) on the one card (see
+    the module docstring, phase 10): (a) every band of 2- and 4-rank
+    meshes in this process, (b) two gloo ranks on the card, (c) a one-rank
+    NCCL group, which is the phase's counted run, and the timings."""
+    import torch.distributed as dist
+
+    from pigo_tpu_torch import FaceCascade
+    from pigo_tpu_torch.parallel import (ShardedFaceCascade,
+                                         init_distributed, make_mesh)
+
+    hdf, batch = _sharded_frames(gray, hd)
+    out = {"card": card}
+
+    # (a) every band in this process, against single-card sparse_hits
+    bands = []
+    for shape, frame, cfg in (("headline", gray, HEADLINE),
+                              ("hd1080", hd, HD)):
+        for mode, kw in (("default", {}), ("prefix", {"prefix": True})):
+            fc = FaceCascade(**kw)
+            sh = ShardedFaceCascade(make_mesh(1), fc)
+            tiny = ShardedFaceCascade(make_mesh(1), fc, hit_capacity=1)
+            for angle in (0.0, ROT_ANGLE):
+                want = fc.sparse_hits(frame, *frame.shape, angle=angle, **cfg)
+                for n in SHARDED_NS:
+                    expected = _band_launches(sh, frame, cfg, n)
+                    reset_face_counts()
+                    got = sh.window_bands_hits(frame, *frame.shape, n,
+                                               angle=angle, **cfg)
+                    counts = face_counts()
+                    check(np.array_equal(got, want),
+                          f"{shape} {mode} {angle}: {n} bands != sparse_hits")
+                    check(counts == expected, f"{shape} {mode} {angle}: {n} "
+                          f"bands launched {counts}, expected {expected}")
+                    check(np.array_equal(tiny.window_bands_hits(
+                        frame, *frame.shape, n, angle=angle, **cfg), want),
+                        f"{shape} {mode} {angle}: {n} bands at capacity 1 "
+                        "!= sparse_hits")
+                    case = dict(shape=shape, mode=mode, angle=angle, n=n,
+                                hits=int(want.shape[0]), launches=counts,
+                                equal_single_card=True,
+                                equal_at_capacity_1=True)
+                    bands.append(case)
+                    emit("sharded_bands", **case)
+    out["bands"] = bands
+
+    # (b) two gloo ranks on the card, each its own process
+    single = FaceCascade()
+    want_hd = [single.sparse_hits(f, *hd.shape, **HD) for f in hdf]
+    want_batch = [single.sparse_hits(f, *gray.shape, **HEADLINE)
+                  for f in batch]
+    want_total = sum(w.shape[0] for w in want_batch)
+    t0 = time.perf_counter()
+    ranks = _run_gloo_ranks(SHARDED_DEVICE)
+    gloo_s = time.perf_counter() - t0
+    for r in ranks:
+        check(r["backend"] == "gloo" and r["device"] == SHARDED_DEVICE,
+              f"rank {r['rank']} ran {r['backend']} on {r['device']}")
+        check(all(np.array_equal(np.asarray(g, np.float64).reshape(-1, 4), w)
+                  for g, w in zip(r["window"], want_hd))
+              and len(r["window"]) == len(hdf),
+              f"gloo rank {r['rank']}: window_sharded_hits != sparse_hits")
+        check(all(np.array_equal(np.asarray(g, np.float64).reshape(-1, 4), w)
+                  for g, w in zip(r["batch"], want_batch))
+              and len(r["batch"]) == len(batch),
+              f"gloo rank {r['rank']}: batch_hits != sparse_hits")
+        check(r["total"] == want_total,
+              f"gloo rank {r['rank']}: total {r['total']} != {want_total}")
+        check(tuple(r["window_launches"]) == (len(hdf), 0, 0)
+              and tuple(r["batch_launches"]) == (1, 0, 0),
+              f"gloo rank {r['rank']}: launches {r['window_launches']} "
+              f"{r['batch_launches']}, expected one face_cascade a frame "
+              "and one a batch")
+    out["gloo"] = {f"rank{r['rank']}": dict(
+        window_hd1080=_ms_stats(r["window_ms"]),
+        batch_headline=_ms_stats(r["batch_ms"]),
+        window_launches=r["window_launches"],
+        batch_launches=r["batch_launches"]) for r in ranks}
+    out["gloo"]["seconds"] = gloo_s
+    emit("sharded_gloo", equal_single_card=True, hd_frames=len(hdf),
+         batch=len(batch), total=want_total, **out["gloo"], card=card)
+
+    # (c) a one-rank NCCL group: the counted run and the timings
+    check(init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                           device=SHARDED_DEVICE) == 1,
+          "the NCCL group is not one rank")
+    try:
+        mesh = make_mesh(1)
+        check(mesh.backend == "nccl" and mesh.group is not None,
+              f"the mesh runs {mesh.backend}, not NCCL")
+        shs = {mode: ShardedFaceCascade(mesh, FaceCascade(**kw))
+               for mode, kw in (("default", {}), ("prefix",
+                                                  {"prefix": True}))}
+        launches, expected = {}, {}
+        for mode, sh in shs.items():
+            # one launch set a window-sharded frame and one a batch (the
+            # batch routes as the face does: at tree cap 0, like the bands)
+            per_frame = _band_launches(sh, hd, HD, 1)
+            per_batch = _band_launches(sh, gray, HEADLINE, 1)
+            expected[mode] = tuple(len(hdf) * f + b
+                                   for f, b in zip(per_frame, per_batch))
+            sh.window_sharded_hits(hdf[0], *hd.shape, **HD)  # plans
+            sh.batch_hits(batch, *gray.shape, **HEADLINE)
+            reset_face_counts()
+            window = [sh.window_sharded_hits(f, *hd.shape, **HD)
+                      for f in hdf]
+            dets, total = sh.batch_hits(batch, *gray.shape, **HEADLINE)
+            launches[mode] = face_counts()
+            check(all(np.array_equal(g, w) for g, w in zip(window, want_hd)),
+                  f"NCCL {mode}: window_sharded_hits != sparse_hits")
+            check(all(np.array_equal(g, w) for g, w in zip(dets, want_batch))
+                  and total == want_total,
+                  f"NCCL {mode}: batch_hits != sparse_hits")
+        check(launches == expected,
+              f"NCCL launches {launches}, expected {expected}")
+        sh = shs["default"]
+        pairs = {"window_hd1080": (
+            lambda: sh.window_sharded_hits(hdf[0], *hd.shape, **HD),
+            lambda: single.sparse_hits(hdf[0], *hd.shape, **HD)),
+            "batch_headline": (
+            lambda: sh.batch_hits(batch, *gray.shape, **HEADLINE),
+            lambda: single.sparse_hits_batch(batch, **HEADLINE))}
+        timing = {}
+        for name, (sharded, plain) in pairs.items():
+            ms = {"sharded": [], "single_card": []}
+            for _ in range(SHARDED_REPS):  # in turns
+                ms["sharded"].append(_call_ms(sharded))
+                ms["single_card"].append(_call_ms(plain))
+            timing[name] = {k: _ms_stats(v) for k, v in ms.items()}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    out.update(nccl_launches=launches, timing=timing)
+    emit("sharded_nccl", equal_single_card=True, launches=launches,
+         hd_frames=len(hdf), batch=len(batch), card=card)
+    emit("sharded_time", **timing, what="host ms a call: window_sharded_hits"
+         " of one 1080p frame against sparse_hits, batch_hits of "
+         f"{len(batch)} headline frames against sparse_hits_batch, one-rank "
+         "NCCL group, in turns", card=card)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1625,11 +1923,9 @@ def main() -> int:
     emit("device", torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), card=card)
-    gray = np.load(os.path.join(ROOT, "pigo_tpu_torch", "assets",
-                                "sample_gray.npy"))
+    gray, hd = _load_frames()
     check(gray.shape == (400, 320) and gray.dtype == np.uint8,
           "sample_gray.npy is not the 400x320 uint8 sample frame")
-    hd = np.tile(gray, (1080 // 400 + 1, 1920 // 320 + 1))[:1080, :1920]
     with open(os.path.join(ROOT, "tests", "golden", "sample_dense.json")) as fh:
         golden = json.load(fh)
     with open(os.path.join(ROOT, "tests", "golden",
@@ -1666,11 +1962,15 @@ def main() -> int:
     timed("device_host_tail", phase_device_host_tail, gray, hd, det_golden,
           det, dmain["per_frame_detect"], card)
     timed("cli", phase_cli, gray, det, card)
+    shard = timed("sharded", phase_sharded, gray, hd, card)
     emit("phase_seconds", **seconds)
     check("jax" not in sys.modules and "pigo_tpu" not in sys.modules,
           "the port pulled in jax or pigo_tpu")
 
     shapes = kstats["shapes"]
+    # the sharded phase's counted run (one-rank NCCL group, both modes)
+    sharded_launches = [sum(c[i] for c in shard["nccl_launches"].values())
+                        for i in range(3)]
     head = shapes["headline"]
     post = [pstats["shapes"]["sample"][k] for k in ("eyes", "landmarks")]
     TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by")
@@ -1684,6 +1984,7 @@ def main() -> int:
         "source": "pigo_tpu_torch/csrc/face_cascade.cu",
         "replaces": "pigo_tpu/ops/face_pallas.py:635",
         "launches": main["launches"]["face_cascade"],
+        "sharded_launches": sharded_launches[0],
         "max_abs_err": kstats["max_abs_err"]["face_cascade"],
         **pick(head),
         "library_ms": None,
@@ -1704,6 +2005,7 @@ def main() -> int:
         "source": "pigo_tpu_torch/csrc/face_prefix.cu",
         "replaces": "pigo_tpu/ops/face_pallas.py:863",
         "launches": main["launches"]["face_prefix"],
+        "sharded_launches": sharded_launches[1],
         "max_abs_err": kstats["max_abs_err"]["face_prefix"],
         **pick(head["prefix"]["upright"]),
         "library_ms": None,
@@ -1729,6 +2031,7 @@ def main() -> int:
                        "marked windows (a jnp gather classifier; it has no "
                        "Pallas kernel)",
         "launches": main["launches"]["face_finish"],
+        "sharded_launches": sharded_launches[2],
         "max_abs_err": kstats["max_abs_err"]["face_finish"],
         **pick(head["finish"]["upright"]),
         "library_ms": None,
@@ -1794,4 +2097,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        sys.exit(sharded_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4]))
     sys.exit(main())

@@ -11,6 +11,12 @@ clustering (csrc/cluster_device.cu). Its host C++ engine
 (native/pigo_native.cpp: the opt-in host tail of the face stage,
 `native_cluster`) builds with g++ at first use. The command line is
 `python -m pigo_tpu_torch.cli` (`pigo-tpu-torch`).
+
+Subpackages beside the serving path: `parallel` (multi-GPU detection over
+torch.distributed: window-band sharding and frame data parallelism,
+`ShardedFaceCascade`, `make_mesh`, `init_distributed`), `oracle` (the
+NumPy oracle, a copy of the JAX package's) and `tools` (`paritydiff`,
+`make_golden`, and the kernels' timing sweeps).
 """
 
 from __future__ import annotations

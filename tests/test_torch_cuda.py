@@ -568,3 +568,28 @@ def test_host_tail_on_card_equals_all_card(cuda_device, gray):
         assert [r.to_json_dict() for r in res] == \
             [r.to_json_dict() for r in want]
         assert len(res) == 1
+
+
+def test_sharded_bands_match_single_card_on_card(cuda_device, gray):
+    """Every band of a 2- and a 4-rank mesh, run on the card in this
+    process and merged, equals single-card sparse_hits bit for bit at the
+    headline pyramid, upright and at 0.07, in the default and prefix
+    routings, and through the re-read at hit capacity 1; each band makes
+    one face_cascade launch."""
+    from pigo_tpu_torch.parallel import ShardedFaceCascade, make_mesh
+
+    for kw in ({}, {"prefix": True}):
+        fc = FaceCascade(**kw)
+        sh = ShardedFaceCascade(make_mesh(1), fc)
+        tiny = ShardedFaceCascade(make_mesh(1), fc, hit_capacity=1)
+        for angle in (0.0, 0.07):
+            want = fc.sparse_hits(gray, 400, 320, angle=angle, **HEADLINE)
+            assert want.shape[0] >= 2
+            for n in (2, 4):
+                before = face_cuda.face_cascade_launches
+                got = sh.window_bands_hits(gray, 400, 320, n, angle=angle,
+                                           **HEADLINE)
+                assert face_cuda.face_cascade_launches == before + n
+                assert np.array_equal(got, want)
+                assert np.array_equal(tiny.window_bands_hits(
+                    gray, 400, 320, n, angle=angle, **HEADLINE), want)
