@@ -89,7 +89,22 @@ the final status line):
      phase's counted run, the same checks in both modes, then both
      methods' ms a call beside sparse_hits and sparse_hits_batch, in
      turns (one card shows no multi-card gain);
-  11. kernels — one JSON line for every ported kernel, after the seconds
+  11. serve — the serving surface (pigo_tpu_torch.web) at the web server's
+     defaults on 480x640 frames: the card's detect(frame, seed + i) for
+     every request index, its first indices of both frames equal to the
+     CPU's (the plain versions) bit for bit; (a) CudaStreamEngine at 1
+     and 4 caller threads, three timed windows of 200 requests each and
+     a mixed run with the 1080p frame off-stream, every answer equal to
+     detect(frame, seed + i) for its own request index i, every dispatch
+     under set_sync_debug_mode("error"); (b) web.main's server in this
+     process, PNG frames POSTed at concurrency 1 and 3 through
+     bench_client.run by a client process of its own (three windows of
+     200), every body equal to results_to_json(detect(frame, seed + i))
+     for its own i, and GET /stats, / and /cascade/facefinder
+     (byte-exact); the counted run (`serve_launches`), the ladder's
+     counters, launches per request, requests/s (median and spread over
+     the windows) and latency beside detect_stream_device's ms/frame;
+  12. kernels — one JSON line for every ported kernel, after the seconds
      each phase took.
 The build also compiles the host C++ engine (g++, beside the nvcc builds).
 Any failed check exits non-zero before the status line.
@@ -99,11 +114,13 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
 import time
+import urllib.request
 import zlib
 
 import numpy as np
@@ -152,6 +169,23 @@ SHARDED_HD_FRAMES = 4
 SHARDED_BATCH = 8
 SHARDED_REPS = 10
 SHARDED_DEVICE = "cuda:0"  # the card of every rank in the sharded phase
+# The serve phase: the web server's defaults (examples/common.py:49-53) on
+# the 480x640 top-left of the 1080p tiling (the browser page's canvas and
+# bench_client's frame), the stream engine's depth, the requests of each
+# timed window (bench_client's default) and the windows at each caller
+# count and concurrency, the engine's caller threads and the HTTP
+# concurrencies, the mixed run's requests (half of them the 1080p frame,
+# off-stream), and how many of each frame's first request indices have
+# their card reference held against the CPU's
+SERVE_CFG = dict(min_size=100, max_size=600, shift=0.1, scale=1.1, iou=0.2)
+SERVE_SHAPE = (480, 640)
+SERVE_DEPTH = 4
+SERVE_REQUESTS = 200
+SERVE_WINDOWS = 3
+SERVE_THREADS = (1, 4)
+SERVE_HTTP = (1, 3)
+SERVE_MIXED = 8
+SERVE_CPU_SEEDS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -1902,6 +1936,312 @@ def phase_sharded(gray, hd, card) -> dict:
     return out
 
 
+def _spread(n: int, parts: int) -> list:
+    """n requests over `parts` callers, as even as they go."""
+    return [n // parts + (t < n % parts) for t in range(parts)]
+
+
+def _window_stats(windows) -> dict:
+    """Requests/s of each timed window (a list of request seconds and the
+    window's seconds) in run order, their median and spread, and the
+    latency of every request of every window."""
+    from pigo_tpu_torch.web.bench_client import latency_ms
+
+    rates = [len(s) / total for s, total in windows]
+    ranked = sorted(rates)
+    return dict(requests_per_s=ranked[len(ranked) // 2],
+                requests_per_s_min=ranked[0], requests_per_s_max=ranked[-1],
+                requests_per_s_windows=rates,
+                **latency_ms([x for s, _ in windows for x in s]),
+                median_ms_windows=[latency_ms(s)["median_ms"]
+                                   for s, _ in windows],
+                requests_per_window=len(windows[0][0]), windows=len(windows),
+                seconds=[total for _, total in windows])
+
+
+def serve_client(url: str, frames: int, concurrency: int, windows: int) -> int:
+    """The HTTP load of the serve phase, in a process of its own so that
+    it shares no interpreter lock with the server: `chip_smoke.py
+    --serve-client URL FRAMES CONCURRENCY WINDOWS`, the payload on
+    standard input. Runs bench_client.run `windows` times and prints one
+    `RESULT` JSON line: each window's bodies, request seconds and
+    seconds. Loads bench_client by path (the standard library only)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("bench_client", os.path.join(
+        ROOT, "pigo_tpu_torch", "web", "bench_client.py"))
+    bench_client = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_client)
+    payload = sys.stdin.buffer.read()
+    out = []
+    for _ in range(windows):
+        bodies, seconds, total = bench_client.run(url, payload, frames,
+                                                  concurrency)
+        out.append({"bodies": [b.decode() for b in bodies],
+                    "seconds": seconds, "total": total})
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def phase_serve(hd, card) -> dict:
+    """The serving surface (pigo_tpu_torch.web) on the card (see the module
+    docstring, phase 11): the stream engine, then the HTTP server."""
+    import threading
+
+    from pigo_tpu_torch import FaceDetector
+    from pigo_tpu_torch.detector import CascadeParams
+    from pigo_tpu_torch.ops import cluster_device as cd
+    from pigo_tpu_torch.ops import face_cuda, pupil_cuda
+    from pigo_tpu_torch.web import bench_client, engines
+    from pigo_tpu_torch.web import main as web_main
+
+    try:
+        import PIL.Image
+    except ImportError as exc:
+        raise SmokeFailure("phase serve needs Pillow (the server decodes "
+                           "with it)") from exc
+
+    rows, cols = SERVE_SHAPE
+    gray = np.ascontiguousarray(hd[:rows, :cols])
+    frames = {"on": np.repeat(gray[:, :, None], 3, axis=2),
+              "off": np.repeat(hd[:, :, None], 3, axis=2)}
+    check(np.array_equal(engines.bgr_to_gray(frames["on"]), gray.ravel()),
+          "the BGR frame's gray is not the frame")
+    params = CascadeParams(SERVE_CFG["min_size"], SERVE_CFG["max_size"],
+                           SERVE_CFG["shift"], SERVE_CFG["scale"])
+    iou = SERVE_CFG["iou"]
+    timed_n = SERVE_WINDOWS * SERVE_REQUESTS
+
+    # ---- the references: detect(frame, seed + i) on the card for every
+    # index a run can give the frame. The engine's indices: 0 on, 1 off,
+    # the timed windows (on), then the mixed run (either frame); the
+    # server's: one warm-up, then the timed windows (on)
+    engine_n = 2 + timed_n + SERVE_MIXED
+    http_n = 1 + timed_n * len(SERVE_HTTP)
+    mixed = range(engine_n - SERVE_MIXED, engine_n)
+    need = {"on": range(max(engine_n, http_n)), "off": [1, *mixed]}
+    det = FaceDetector()
+
+    def reference(d, kind, i):
+        h, w = frames[kind].shape[:2]
+        return engines.result_dicts(d.detect(
+            engines.bgr_to_gray(frames[kind]), h, w, params,
+            iou_threshold=iou, generator=frame_generator(i)))
+
+    refs = {kind: [None] * (max(idx) + 1) for kind, idx in need.items()}
+    for kind, idx in need.items():
+        for i in idx:
+            refs[kind][i] = reference(det, kind, i)
+    faces = {k: (len(refs[k][idx[0]]),
+                 sum(bool(r["eyes"]) for r in refs[k][idx[0]]))
+             for k, idx in need.items()}
+    check(faces["on"][1] >= 1 and faces["off"][1] >= 1,
+          f"the serving frames hold no eyed face: {faces}")
+    # the card's references against the plain versions on the CPU, bit for
+    # bit: kernel A on this pyramid and the walks at these frames' faces
+    # (and so, through the engine's answers, the cluster kernel on these
+    # frames' hit lists)
+    det_cpu = FaceDetector(device="cpu")
+    cpu_checked = {kind: list(idx)[:SERVE_CPU_SEEDS]
+                   for kind, idx in need.items()}
+    for kind, idx in cpu_checked.items():
+        for i in idx:
+            check(reference(det_cpu, kind, i) == refs[kind][i],
+                  f"serve: detect of the {kind} frame with seed {i} on the "
+                  "card != on the CPU")
+
+    def kernel_counts():
+        return {"face_cascade": face_cuda.face_cascade_launches,
+                "face_prefix": face_cuda.face_prefix_launches,
+                "face_finish": face_cuda.face_finish_launches,
+                "pupil_walk": pupil_cuda.pupil_walk_launches,
+                "cluster_device": cd.cluster_device_launches}
+
+    def answers_ok(answers, lo, hi) -> bool:
+        """(kind, results, ...) answers against refs[kind][lo:hi], each
+        index once."""
+        return len(answers) == hi - lo and bench_client.match_once(
+            answers, {k: v[lo:hi] for k, v in refs.items()})
+
+    # ---- the counted run: (a) the engine, then (b) the server
+    reset_face_counts()
+    pupil_cuda.pupil_walk_launches = cd.cluster_device_launches = 0
+    reset_ladder_counts()
+    out = {"card": card, "frames": {k: list(f.shape[:2])
+                                    for k, f in frames.items()},
+           "faces_eyed": faces, "cpu_checked_seeds": cpu_checked,
+           "engine": {}, "http": {}}
+    requests = stream_requests = 0
+    for threads in SERVE_THREADS:
+        engine = engines.CudaStreamEngine(seed=SEED, depth=SERVE_DEPTH,
+                                          **SERVE_CFG)
+        try:
+            # indices 0, 1: the first plans and uploads, on- and off-stream
+            warm, _ = bench_client.run_engine(
+                engine, [[("on", frames["on"]), ("off", frames["off"])]],
+                **SERVE_CFG)
+            check(answers_ok(warm, 0, 2)
+                  and [a[0] for a in warm] == ["on", "off"],
+                  f"{threads} callers: the first requests != detect")
+            windows = []
+            with sync_free_dispatch(engine.det):
+                for w in range(SERVE_WINDOWS):
+                    timed, total = bench_client.run_engine(engine, [
+                        [("on", frames["on"])] * n
+                        for n in _spread(SERVE_REQUESTS, threads)],
+                        **SERVE_CFG)
+                    lo = 2 + w * SERVE_REQUESTS
+                    check(answers_ok(timed, lo, lo + SERVE_REQUESTS),
+                          f"{threads} callers, window {w}: the answers != "
+                          "detect(frame, seed + i)")
+                    windows.append(([a[2] for a in timed], total))
+                mixed_plans = [[] for _ in range(threads)]
+                for k in range(SERVE_MIXED):
+                    kind = "off" if k % 2 else "on"
+                    mixed_plans[k % threads].append((kind, frames[kind]))
+                got, _ = bench_client.run_engine(engine, mixed_plans,
+                                                 **SERVE_CFG)
+                check(answers_ok(got, mixed.start, engine_n),
+                      f"{threads} callers: the mixed run != detect(frame, "
+                      "seed + i)")
+        finally:
+            engine.close()
+        requests += engine_n
+        stream_requests += engine_n - 1 - SERVE_MIXED // 2
+        out["engine"][f"callers_{threads}"] = dict(
+            **_window_stats(windows), depth=SERVE_DEPTH,
+            mixed_requests=SERVE_MIXED, equal_detect=True)
+
+    # (b) the server in this process; the PNG frames POSTed through
+    # bench_client.run by a process of its own (serve_client)
+    buf = io.BytesIO()
+    PIL.Image.fromarray(frames["on"][:, :, ::-1]).save(buf, format="PNG")
+    payload = buf.getvalue()
+    args = web_main.build_parser().parse_args(["--depth", str(SERVE_DEPTH)])
+    check(args.engine == "cuda-stream" and args.device is None,
+          f"the server's defaults are {args.engine} on {args.device}")
+    srv, engine = web_main.make_server(args, ("127.0.0.1", 0))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    want_json = [json.dumps(web_main.results_to_json(r), sort_keys=True)
+                 for r in refs["on"]]
+
+    def bodies_ok(bodies, lo) -> bool:
+        got = sorted(json.dumps(json.loads(b), sort_keys=True)
+                     for b in bodies)
+        return got == sorted(want_json[lo:lo + len(bodies)])
+
+    try:
+        check(engine.seed == SEED, f"the server's engine seed {engine.seed}")
+        first = bench_client.post(base + "/detect", payload)
+        check(bodies_ok([first], 0), "HTTP: the first body != detect")
+        lo = 1
+        with sync_free_dispatch(engine.det):
+            for conc in SERVE_HTTP:
+                client = subprocess.run(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--serve-client", base + "/detect",
+                     str(SERVE_REQUESTS), str(conc), str(SERVE_WINDOWS)],
+                    input=payload, capture_output=True, timeout=600,
+                    cwd=ROOT)
+                lines = [ln for ln in client.stdout.decode().splitlines()
+                         if ln.startswith("RESULT ")]
+                check(client.returncode == 0 and len(lines) == 1,
+                      f"HTTP client at concurrency {conc} failed: "
+                      f"{client.stderr.decode()[-2000:]}")
+                windows = []
+                for w in json.loads(lines[0][len("RESULT "):]):
+                    check(len(w["bodies"]) == SERVE_REQUESTS
+                          and bodies_ok(w["bodies"], lo),
+                          f"HTTP at concurrency {conc}: the bodies != "
+                          "results_to_json(detect(frame, seed + i))")
+                    lo += SERVE_REQUESTS
+                    windows.append((w["seconds"], w["total"]))
+                out["http"][f"concurrency_{conc}"] = dict(
+                    **_window_stats(windows), client="its own process",
+                    equal_detect=True)
+        with urllib.request.urlopen(base + "/stats", timeout=60) as resp:
+            stats = json.load(resp)
+        check(stats["stages"]["detect"]["calls"] == http_n
+              and "fps" in stats, f"HTTP: /stats reads {stats}")
+        with urllib.request.urlopen(base + "/", timeout=60) as resp:
+            check(resp.read().decode() == web_main.PAGE, "HTTP: / != PAGE")
+        with urllib.request.urlopen(base + "/cascade/facefinder",
+                                    timeout=60) as resp:
+            body = resp.read()
+        with open(os.path.join(ROOT, "assets", "cascade", "facefinder"),
+                  "rb") as fh:
+            check(body == fh.read(), "HTTP: /cascade/facefinder differs")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.close()
+        thread.join(60)
+    requests += http_n
+    stream_requests += http_n
+    launches = kernel_counts()
+    ladder = ladder_counts()
+
+    up = ladder["face_slot_escalations"] + ladder["hit_cap_escalations"]
+    check(ladder["detect_fallbacks"] == 0,
+          f"serve: {ladder['detect_fallbacks']} frames handed to detect")
+    check(ladder["device_frame_waits"] == stream_requests + up,
+          f"serve: {ladder['device_frame_waits']} host waits for "
+          f"{stream_requests} streamed requests and {up} escalations")
+    want = {"face_cascade": requests + up, "face_prefix": 0,
+            "face_finish": 0, "pupil_walk": 2 * (requests + up),
+            "cluster_device": stream_requests + up}
+    check(launches == want, f"serve: launches {launches}, expected {want}")
+    out.update(launches=launches, ladder=ladder, requests=requests,
+               stream_requests=stream_requests,
+               launches_per_request={
+                   **{k: launches[k] / requests for k in (
+                       "face_cascade", "pupil_walk", "cluster_device")},
+                   "all_kernels": sum(launches.values()) / requests})
+    emit("serve", **{k: v for k, v in out.items()
+                     if k not in ("engine", "http")})
+
+    # ---- detect_stream_device on the same frames, the reference point
+    # (at the engine's depth, and at depth 1: each frame collected before
+    # the next is dispatched, a lone caller's case), and the host steps a
+    # request adds before the worker takes it
+    sdet = FaceDetector()
+    out["detect_stream_device"] = {}
+    for depth in (SERVE_DEPTH, 1):
+        ms = []
+        for _ in range(SERVE_WINDOWS):
+            t0 = time.perf_counter()
+            got = list(sdet.detect_stream_device(
+                [gray] * SERVE_REQUESTS, params, iou_threshold=iou,
+                seed=SEED, depth=depth))
+            ms.append((time.perf_counter() - t0) / SERVE_REQUESTS * 1e3)
+            check(len(got) == SERVE_REQUESTS,
+                  "detect_stream_device lost frames")
+        out["detect_stream_device"][f"depth_{depth}"] = dict(
+            ms_per_frame_windows=ms, ms_per_frame_best=min(ms),
+            ms_per_frame_median=sorted(ms)[len(ms) // 2],
+            frames=SERVE_REQUESTS)
+    from pigo_tpu_torch.io.image import decode_image
+
+    steps = {"bgr_to_gray": lambda: engines.bgr_to_gray(frames["on"]),
+             "png_decode": lambda: decode_image(payload)[:, :, 2::-1]}
+    out["host_steps"] = {name: _ms_stats([_call_ms(fn) for _ in range(20)])
+                         for name, fn in steps.items()}
+    emit("serve_time", engine=out["engine"], http=out["http"],
+         detect_stream_device=out["detect_stream_device"],
+         host_steps=out["host_steps"],
+         what="requests/s over each timed window's wall time (median, "
+              "min, max and each window in run order); latency of each "
+              "request on its caller's clock over all windows; engine "
+              "callers are threads of this process, the HTTP client a "
+              "process of its own; detect_stream_device ms a frame over "
+              "the same frame, one caller, at the engine's depth and at "
+              "1; host ms of a caller's gray conversion and of the "
+              "server's PNG decode", card=card)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1963,6 +2303,7 @@ def main() -> int:
           det, dmain["per_frame_detect"], card)
     timed("cli", phase_cli, gray, det, card)
     shard = timed("sharded", phase_sharded, gray, hd, card)
+    serve = timed("serve", phase_serve, hd, card)
     emit("phase_seconds", **seconds)
     check("jax" not in sys.modules and "pigo_tpu" not in sys.modules,
           "the port pulled in jax or pigo_tpu")
@@ -1985,6 +2326,7 @@ def main() -> int:
         "replaces": "pigo_tpu/ops/face_pallas.py:635",
         "launches": main["launches"]["face_cascade"],
         "sharded_launches": sharded_launches[0],
+        "serve_launches": serve["launches"]["face_cascade"],
         "max_abs_err": kstats["max_abs_err"]["face_cascade"],
         **pick(head),
         "library_ms": None,
@@ -2048,6 +2390,7 @@ def main() -> int:
         "source": "pigo_tpu_torch/csrc/pupil_walk.cu",
         "replaces": "pigo_tpu/ops/pupil_pallas.py:48",
         "launches": dmain["launches"]["pupil_walk"],
+        "serve_launches": serve["launches"]["pupil_walk"],
         "max_abs_err": pstats["max_abs_err"],
         "ms": sum(w["ms"] for w in post),
         "plain_ms": sum(w["plain_ms"] for w in post),
@@ -2075,6 +2418,7 @@ def main() -> int:
                        "clustering (a jnp fori_loop; it has no Pallas "
                        "kernel)",
         "launches": ddev["launches"]["cluster_device"],
+        "serve_launches": serve["launches"]["cluster_device"],
         "max_abs_err": cstats["max_abs_err"],
         **pick(cstats["cases"]["sample"]),
         "library_ms": None,
@@ -2100,4 +2444,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-worker"]:
         sys.exit(sharded_worker(int(sys.argv[2]), int(sys.argv[3]),
                                 sys.argv[4]))
+    if sys.argv[1:2] == ["--serve-client"]:
+        sys.exit(serve_client(sys.argv[2], *map(int, sys.argv[3:6])))
     sys.exit(main())

@@ -15,8 +15,10 @@ clustering (csrc/cluster_device.cu). Its host C++ engine
 Subpackages beside the serving path: `parallel` (multi-GPU detection over
 torch.distributed: window-band sharding and frame data parallelism,
 `ShardedFaceCascade`, `make_mesh`, `init_distributed`), `oracle` (the
-NumPy oracle, a copy of the JAX package's) and `tools` (`paritydiff`,
-`make_golden`, and the kernels' timing sweeps).
+NumPy oracle, a copy of the JAX package's), `tools` (`paritydiff`,
+`make_golden`, and the kernels' timing sweeps) and `web` (the serving
+surface: the detection engines, the web server `python -m
+pigo_tpu_torch.web.main` and its load client).
 """
 
 from __future__ import annotations

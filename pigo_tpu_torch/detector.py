@@ -453,6 +453,66 @@ class _FrameTicket:
     event: object = None
 
 
+class DeviceStream:
+    """The device-resident stream's frames in flight, fed one frame at a
+    time (detect_stream_device, the serving engine). It owns `depth`
+    staging slots: a frame holds one from `submit` until `collect_oldest`
+    answers it (the ladder re-dispatches into that same slot). The first
+    frame is collected before a second is submitted, so that its face
+    count sizes the face slots of the frames behind it (`full`). Each
+    frame's results equal `detect(frame, generator=manual_seed(seed))` bit
+    for bit. A frame whose dispatch or collection raises trades its slot,
+    which may hold a half-enqueued upload, for a new one, and the error
+    goes to the caller."""
+
+    def __init__(self, det: "FaceDetector", args: tuple, depth: int):
+        self.det = det
+        self.args = args  # (params, angle, iou_threshold, perturbs)
+        self.depth = max(1, int(depth))
+        self._free = [self._new_slot() for _ in range(self.depth)]
+        self._inflight: collections.deque = collections.deque()
+        self._primed = False  # a frame was collected
+
+    def __len__(self) -> int:
+        return len(self._inflight)
+
+    @property
+    def full(self) -> bool:
+        """True when the oldest frame must be collected before another is
+        submitted."""
+        return len(self._inflight) >= self.depth or (
+            bool(self._inflight) and not self._primed)
+
+    def _new_slot(self) -> _DeviceSlot:
+        return _DeviceSlot(_Slot(self.det.device))
+
+    def submit(self, frame, seed: int) -> None:
+        """Enqueue `frame` [rows, cols] uint8 with its jitter seed."""
+        if self.full:
+            raise RuntimeError("DeviceStream is full: collect the oldest "
+                               "frame first")
+        slot = self._free.pop()
+        try:
+            ticket = self.det._dispatch_frame_device(frame, self.args, seed,
+                                                     slot)
+        except BaseException:
+            self._free.append(self._new_slot())
+            raise
+        self._inflight.append(ticket)
+
+    def collect_oldest(self) -> list[FaceResult]:
+        """Wait for the oldest frame in flight and return its results."""
+        ticket = self._inflight.popleft()
+        try:
+            results = self.det._collect_frame_device(ticket)
+        except BaseException:
+            self._free.append(self._new_slot())
+            raise
+        self._free.append(ticket.slot)
+        self._primed = True
+        return results
+
+
 @dataclasses.dataclass
 class _PostTicket:
     """One dispatched post stage: the faces it serves, the [3, 2F + F*npts]
@@ -733,24 +793,20 @@ class FaceDetector:
                                           iou_threshold, perturbs, seed,
                                           depth)
             return
-        depth = max(1, int(depth))
-        # frame k reuses the slot of frame k - depth, collected by then
-        ring = [_DeviceSlot(_Slot(self.device)) for _ in range(depth)]
-        args = (params, angle, iou_threshold, perturbs)
+        stream = DeviceStream(self, (params, angle, iou_threshold, perturbs),
+                              depth)
         stage = (stats.stage if stats is not None
                  else lambda name, items=0: contextlib.nullcontext())
-        inflight: collections.deque = collections.deque()
         for i, frame in enumerate(frames):
             with stage("dispatch", items=1):
-                inflight.append(self._dispatch_frame_device(
-                    frame, args, seed + i, ring[i % depth]))
-            if len(inflight) >= depth or i == 0:
+                stream.submit(frame, seed + i)
+            if stream.full:
                 with stage("collect", items=1):
-                    results = self._collect_frame_device(inflight.popleft())
+                    results = stream.collect_oldest()
                 yield results
-        while inflight:
+        while len(stream):
             with stage("collect", items=1):
-                results = self._collect_frame_device(inflight.popleft())
+                results = stream.collect_oldest()
             yield results
 
     def _device_tables(self, slots: int):

@@ -3,14 +3,17 @@
 ``PipelineStats`` collects calls, seconds and items per named stage;
 ``stage(...)`` is the context-manager timer that feeds it. Stages that
 enqueue device work must end in a synchronisation (a host read of the
-result) for their seconds to include the device time.
+result) for their seconds to include the device time. ``FpsMeter`` is the
+rolling frames/sec the web server's /stats route reports.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
+from collections import deque
 
 
 @dataclasses.dataclass
@@ -37,23 +40,27 @@ class PipelineStats:
     def __init__(self):
         self.stages: dict[str, StageStat] = {}
         self._t0 = time.perf_counter()
+        # the web server's handler threads time their stages concurrently
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def stage(self, name: str, items: int = 0):
-        st = self.stages.setdefault(name, StageStat())
+        with self._lock:
+            st = self.stages.setdefault(name, StageStat())
         t0 = time.perf_counter()
         try:
             yield st
         finally:
-            st.seconds += time.perf_counter() - t0
-            st.calls += 1
-            st.items += items
+            dt = time.perf_counter() - t0
+            with self._lock:
+                st.seconds += dt
+                st.calls += 1
+                st.items += items
 
     def as_dict(self) -> dict:
         total = time.perf_counter() - self._t0
-        return {
-            "total_seconds": total,
-            "stages": {
+        with self._lock:
+            stages = {
                 k: {
                     "calls": v.calls,
                     "seconds": v.seconds,
@@ -61,6 +68,24 @@ class PipelineStats:
                     "items_per_second": v.items_per_second,
                 }
                 for k, v in self.stages.items()
-            },
-        }
+            }
+        return {"total_seconds": total, "stages": stages}
 
+
+class FpsMeter:
+    """Rolling frames/sec over a sliding window (stats.js equivalent)."""
+
+    def __init__(self, window: int = 30):
+        self._times: deque[float] = deque(maxlen=window)
+
+    def tick(self) -> float:
+        self._times.append(time.perf_counter())
+        return self.value
+
+    @property
+    def value(self) -> float:
+        """Current rolling frames/sec (without registering a frame)."""
+        if len(self._times) < 2:
+            return 0.0
+        span = self._times[-1] - self._times[0]
+        return (len(self._times) - 1) / span if span > 0 else 0.0

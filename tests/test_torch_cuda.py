@@ -593,3 +593,27 @@ def test_sharded_bands_match_single_card_on_card(cuda_device, gray):
                 assert np.array_equal(got, want)
                 assert np.array_equal(tiny.window_bands_hits(
                     gray, 400, 320, n, angle=angle, **HEADLINE), want)
+
+
+def test_stream_engine_on_card_equals_detect(cuda_device, gray):
+    """web.engines.CudaStreamEngine on the card at 3 caller threads: the
+    answers, as a multiset, equal detect(frame, seed + i) for every request
+    index i, at the web server's defaults on a 480x640 frame."""
+    from pigo_tpu_torch.web import bench_client, engines
+
+    cfg = dict(min_size=100, max_size=600, shift=0.1, scale=1.1, iou=0.2)
+    tiled = np.tile(gray, (2, 2))[:480, :640]
+    bgr = np.repeat(tiled[:, :, None], 3, axis=2)
+    det = FaceDetector()
+    want = [engines.result_dicts(det.detect(
+        tiled, 480, 640, CascadeParams(100, 600, 0.1, 1.1),
+        iou_threshold=0.2, generator=torch.Generator().manual_seed(3 + i)))
+        for i in range(12)]
+    engine = engines.CudaStreamEngine(seed=3, depth=4, **cfg)
+    try:
+        got, _ = bench_client.run_engine(engine, [[("on", bgr)] * 4] * 3,
+                                         300, **cfg)
+    finally:
+        engine.close()
+    assert len(got) == 12 and bench_client.match_once(got, {"on": want})
+    assert all(len(r) == 2 and len(r[0]["landmarks"]) == 15 for r in want)

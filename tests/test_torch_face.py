@@ -271,12 +271,14 @@ def test_loaders_and_cluster_export(face_forest):
 
 def test_package_imports_without_jax_pigo_tpu_or_pillow():
     """`import pigo_tpu_torch` and every module of it (walked with
-    pkgutil.walk_packages: the host engine, the CLI, the drawing and the
-    tools among them) load no jax, no pigo_tpu module and no Pillow. Run
-    in a fresh interpreter: this one has imported jax already."""
+    pkgutil.walk_packages: the host engine, the CLI, the drawing, the
+    tools and the web server among them) load no jax, no pigo_tpu module,
+    nothing of examples/, no Pillow and no OpenCV. Run in a fresh
+    interpreter: this one has imported jax already."""
     code = r"""
 import importlib, pkgutil, sys
 sys.modules["PIL"] = None  # importing Pillow would fail
+sys.modules["cv2"] = None  # and OpenCV
 import pigo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(pigo_tpu_torch.__path__,
                                                "pigo_tpu_torch.")]
@@ -285,7 +287,8 @@ for name in names:
 print("MODULES", len(names), sorted(names))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-             or m == "pigo_tpu" or m.startswith("pigo_tpu."))
+             or m == "pigo_tpu" or m.startswith("pigo_tpu.")
+             or m in ("common", "examples") or m.startswith("examples."))
 print("BAD", bad)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -294,5 +297,6 @@ print("BAD", bad)
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
     for name in ("native", "cli", "io.draw", "utils.spinner", "detector",
-                 "tools.face_sweep", "ops.cluster_device"):
+                 "tools.face_sweep", "ops.cluster_device", "web.engines",
+                 "web.main", "web.bench_client"):
         assert f"'pigo_tpu_torch.{name}'" in proc.stdout, name
