@@ -104,7 +104,19 @@ the final status line):
      (byte-exact); the counted run (`serve_launches`), the ladder's
      counters, launches per request, requests/s (median and spread over
      the windows) and latency beside detect_stream_device's ms/frame;
-  12. kernels — one JSON line for every ported kernel, after the seconds
+  12. demos — the seven demos (pigo_tpu_torch.demos: facedet, faceblur,
+     puploc, facial_landmark, blinkdet, masquerade, talk_detector), each
+     through its main with --engine cuda at the demos' defaults and seed
+     0, on 8 BGR frames (the serve phase's 480x640 frame rolled by 0-7
+     columns) from an in-memory source into a sink that keeps them, three
+     passes each: frame i's results equal to the card's detect(frame_i,
+     seed i) for the demo's pipeline, the full pipeline's first two
+     frames equal to the CPU's; per pass 8 face_cascade launches and
+     pupil_walk launches of 0 (facedet, faceblur), 1 (puploc, blinkdet,
+     masquerade) or 2 (facial_landmark, talk_detector) a frame with an
+     eyed face, no other kernel; every frame with a face drawn on; frames
+     a second and the engine's and the drawing's ms a frame;
+  13. kernels — one JSON line for every ported kernel, after the seconds
      each phase took.
 The build also compiles the host C++ engine (g++, beside the nvcc builds).
 Any failed check exits non-zero before the status line.
@@ -186,6 +198,15 @@ SERVE_THREADS = (1, 4)
 SERVE_HTTP = (1, 3)
 SERVE_MIXED = 8
 SERVE_CPU_SEEDS = 3
+# the demos (pigo_tpu_torch.demos): each one's pipeline (with_pupils,
+# with_landmarks), as its main builds its engine
+DEMOS = {"facedet": (False, False), "faceblur": (False, False),
+         "puploc": (True, False), "facial_landmark": (True, True),
+         "blinkdet": (True, False), "masquerade": (True, False),
+         "talk_detector": (True, True)}
+DEMO_FRAMES = 8
+DEMO_PASSES = 3
+DEMO_CPU_FRAMES = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -237,6 +258,25 @@ def reset_face_counts() -> None:
 
     face_cuda.face_cascade_launches = face_cuda.face_prefix_launches = 0
     face_cuda.face_finish_launches = 0
+
+
+def kernel_counts() -> dict:
+    """Every kernel's launch count, by name."""
+    from pigo_tpu_torch.ops import cluster_device, face_cuda, pupil_cuda
+
+    return {"face_cascade": face_cuda.face_cascade_launches,
+            "face_prefix": face_cuda.face_prefix_launches,
+            "face_finish": face_cuda.face_finish_launches,
+            "pupil_walk": pupil_cuda.pupil_walk_launches,
+            "cluster_device": cluster_device.cluster_device_launches}
+
+
+def reset_kernel_counts() -> None:
+    from pigo_tpu_torch.ops import cluster_device, pupil_cuda
+
+    reset_face_counts()
+    pupil_cuda.pupil_walk_launches = 0
+    cluster_device.cluster_device_launches = 0
 
 
 def phase_build() -> None:
@@ -1182,21 +1222,8 @@ def phase_device_detector(gray, hd, golden, det, per_frame_detect,
     docstring, phase 5)."""
     from pigo_tpu_torch import FaceDetector
     from pigo_tpu_torch import detector as port_det
-    from pigo_tpu_torch.ops import cluster_device as cd
-    from pigo_tpu_torch.ops import face_cuda, pupil_cuda
 
     params, iou, streams = detector_streams(gray, hd, golden)
-
-    def kernel_counts():
-        return {"face_cascade": face_cuda.face_cascade_launches,
-                "face_prefix": face_cuda.face_prefix_launches,
-                "face_finish": face_cuda.face_finish_launches,
-                "pupil_walk": pupil_cuda.pupil_walk_launches,
-                "cluster_device": cd.cluster_device_launches}
-
-    def reset_kernel_counts():
-        reset_face_counts()
-        pupil_cuda.pupil_walk_launches = cd.cluster_device_launches = 0
 
     # ---- the main path, counted: both streams, every dispatch sync-free
     reset_kernel_counts()
@@ -1990,8 +2017,6 @@ def phase_serve(hd, card) -> dict:
 
     from pigo_tpu_torch import FaceDetector
     from pigo_tpu_torch.detector import CascadeParams
-    from pigo_tpu_torch.ops import cluster_device as cd
-    from pigo_tpu_torch.ops import face_cuda, pupil_cuda
     from pigo_tpu_torch.web import bench_client, engines
     from pigo_tpu_torch.web import main as web_main
 
@@ -2050,13 +2075,6 @@ def phase_serve(hd, card) -> dict:
                   f"serve: detect of the {kind} frame with seed {i} on the "
                   "card != on the CPU")
 
-    def kernel_counts():
-        return {"face_cascade": face_cuda.face_cascade_launches,
-                "face_prefix": face_cuda.face_prefix_launches,
-                "face_finish": face_cuda.face_finish_launches,
-                "pupil_walk": pupil_cuda.pupil_walk_launches,
-                "cluster_device": cd.cluster_device_launches}
-
     def answers_ok(answers, lo, hi) -> bool:
         """(kind, results, ...) answers against refs[kind][lo:hi], each
         index once."""
@@ -2064,8 +2082,7 @@ def phase_serve(hd, card) -> dict:
             answers, {k: v[lo:hi] for k, v in refs.items()})
 
     # ---- the counted run: (a) the engine, then (b) the server
-    reset_face_counts()
-    pupil_cuda.pupil_walk_launches = cd.cluster_device_launches = 0
+    reset_kernel_counts()
     reset_ladder_counts()
     out = {"card": card, "frames": {k: list(f.shape[:2])
                                     for k, f in frames.items()},
@@ -2242,6 +2259,131 @@ def phase_serve(hd, card) -> dict:
     return out
 
 
+def phase_demos(hd, card) -> dict:
+    """The seven demos (pigo_tpu_torch.demos) through their main on the
+    card (see the module docstring, phase 12)."""
+    import importlib
+
+    try:
+        import cv2
+    except ImportError as exc:
+        raise SmokeFailure("phase demos needs OpenCV (the demos draw with "
+                           "it)") from exc
+    from pigo_tpu_torch import FaceDetector
+    from pigo_tpu_torch.demos.common import KeepSink
+    from pigo_tpu_torch.detector import MIN_EYE_FACE_SCALE, CascadeParams
+    from pigo_tpu_torch.web import engines
+
+    rows, cols = SERVE_SHAPE
+    top = np.ascontiguousarray(hd[:rows, :cols])
+    grays = [np.ascontiguousarray(np.roll(top, k, axis=1))
+             for k in range(DEMO_FRAMES)]
+    frames = [np.repeat(g[:, :, None], 3, axis=2) for g in grays]
+    check(all(np.array_equal(engines.bgr_to_gray(f), g.ravel())
+              for f, g in zip(frames, grays)),
+          "demos: a BGR frame's gray is not the frame")
+    params = CascadeParams(SERVE_CFG["min_size"], SERVE_CFG["max_size"],
+                           SERVE_CFG["shift"], SERVE_CFG["scale"])
+
+    def detect(det, i):
+        return engines.result_dicts(det.detect(
+            grays[i], rows, cols, params, iou_threshold=SERVE_CFG["iou"],
+            generator=frame_generator(i)))
+
+    # ---- the references: detect(frame_i, seed i) on the card for each
+    # pipeline; the full pipeline's first frames against the CPU's
+    refs = {}
+    for pipe in sorted(set(DEMOS.values())):
+        det = FaceDetector(with_pupils=pipe[0], with_landmarks=pipe[1])
+        refs[pipe] = [detect(det, i) for i in range(DEMO_FRAMES)]
+    full = refs[True, True]
+    eyed = sum(any(r["face"][2] > MIN_EYE_FACE_SCALE for r in res)
+               for res in full)
+    check(eyed == DEMO_FRAMES and all(
+        any(len(r["landmarks"]) == 15 for r in res) for res in full),
+        "demos: a frame with no face with eyes and 15 points")
+    det_cpu = FaceDetector(device="cpu")
+    for i in range(DEMO_CPU_FRAMES):
+        check(detect(det_cpu, i) == full[i],
+              f"demos: detect of frame {i} on the card != on the CPU")
+
+    def drawn_on(name, res) -> bool:
+        """Whether the demo draws on a frame with these results."""
+        if name == "masquerade":
+            return any(len(r["eyes"]) >= 2 for r in res)
+        return bool(res)
+
+    out = {"card": card, "shape": [rows, cols], "frames": DEMO_FRAMES,
+           "passes": DEMO_PASSES, "opencv": cv2.__version__,
+           "faces": [len(res) for res in full], "eyed_frames": eyed,
+           "cpu_checked_frames": DEMO_CPU_FRAMES, "demos": {}}
+    totals = {"face_cascade": 0, "pupil_walk": 0}
+    for name, pipe in DEMOS.items():
+        demo = importlib.import_module(f"pigo_tpu_torch.demos.{name}")
+        want = {"face_cascade": DEMO_FRAMES, "face_prefix": 0,
+                "face_finish": 0, "pupil_walk": eyed * sum(pipe),
+                "cluster_device": 0}
+        passes = []
+        for p in range(DEMO_PASSES):
+            sink = KeepSink()
+            reset_kernel_counts()
+            stats = demo.main(["--engine", "cuda"],
+                              source=[f.copy() for f in frames], sink=sink)
+            launches = kernel_counts()
+            check(stats["frames"] == DEMO_FRAMES
+                  and sink.results == refs[pipe],
+                  f"demos: {name}, pass {p}: the results != "
+                  "detect(frame_i, seed i)")
+            check(launches == want, f"demos: {name}, pass {p}: launches "
+                                    f"{launches}, expected {want}")
+            drawn = [not np.array_equal(a, b)
+                     for a, b in zip(sink.frames, frames)]
+            check(all(d for d, res in zip(drawn, sink.results)
+                      if drawn_on(name, res)),
+                  f"demos: {name}, pass {p}: a frame with a face was not "
+                  "drawn on")
+            totals["face_cascade"] += launches["face_cascade"]
+            totals["pupil_walk"] += launches["pupil_walk"]
+            passes.append(dict(
+                fps=stats["frames"] / stats["seconds"],
+                engine_ms=stats["engine_seconds"] / stats["frames"] * 1e3,
+                per_frame_ms=stats["per_frame_seconds"] / stats["frames"]
+                * 1e3, drawn=sum(drawn)))
+        med = {k: sorted(ps[k] for ps in passes)[len(passes) // 2]
+               for k in ("fps", "engine_ms", "per_frame_ms")}
+        out["demos"][name] = dict(
+            launches_per_pass={k: v for k, v in want.items() if v},
+            fps_median=med["fps"], engine_ms_per_frame_median=med["engine_ms"],
+            per_frame_ms_per_frame_median=med["per_frame_ms"],
+            drawn=passes[0]["drawn"], passes=passes, equal_detect=True)
+    out["launches"] = totals
+
+    # ---- where an engine's frame goes: a new cuda engine (the full
+    # pipeline) over the frames, its first call apart, then its two steps
+    # over the same frames: the gray conversion and the warm detector's
+    # detect
+    engine = engines.make_engine("cuda", with_pupils=True,
+                                 with_landmarks=True)
+    calls = [_call_ms(lambda: engine.detect(f, **SERVE_CFG))
+             for f in frames]
+    steps = {"bgr_to_gray": [_call_ms(lambda: engines.bgr_to_gray(f))
+                             for f in frames],
+             "detect": [_call_ms(lambda: detect(engine.det, i))
+                        for i in range(DEMO_FRAMES)]}
+    out["engine_steps"] = {"first_call_ms": calls[0],
+                           "later_calls": _ms_stats(calls[1:]),
+                           **{k: _ms_stats(v) for k, v in steps.items()}}
+    emit("demos", **out, what="each demo's main over the frames, "
+         "--engine cuda at the demos' defaults, seed 0; frames a second "
+         "over fps_loop's wall time, and ms a frame of the engine's calls "
+         "and of per_frame's drawing, medians of the passes; every pass's "
+         "results equal to detect(frame_i, seed i) and its launches "
+         "checked; engine_steps: host ms of a new full-pipeline cuda "
+         "engine's calls (the first apart) and of its gray conversion and "
+         "its warm detector's detect over the same frames")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2304,6 +2446,7 @@ def main() -> int:
     timed("cli", phase_cli, gray, det, card)
     shard = timed("sharded", phase_sharded, gray, hd, card)
     serve = timed("serve", phase_serve, hd, card)
+    demos = timed("demos", phase_demos, hd, card)
     emit("phase_seconds", **seconds)
     check("jax" not in sys.modules and "pigo_tpu" not in sys.modules,
           "the port pulled in jax or pigo_tpu")
@@ -2327,6 +2470,7 @@ def main() -> int:
         "launches": main["launches"]["face_cascade"],
         "sharded_launches": sharded_launches[0],
         "serve_launches": serve["launches"]["face_cascade"],
+        "demos_launches": demos["launches"]["face_cascade"],
         "max_abs_err": kstats["max_abs_err"]["face_cascade"],
         **pick(head),
         "library_ms": None,
@@ -2391,6 +2535,7 @@ def main() -> int:
         "replaces": "pigo_tpu/ops/pupil_pallas.py:48",
         "launches": dmain["launches"]["pupil_walk"],
         "serve_launches": serve["launches"]["pupil_walk"],
+        "demos_launches": demos["launches"]["pupil_walk"],
         "max_abs_err": pstats["max_abs_err"],
         "ms": sum(w["ms"] for w in post),
         "plain_ms": sum(w["plain_ms"] for w in post),

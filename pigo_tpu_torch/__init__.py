@@ -16,9 +16,10 @@ Subpackages beside the serving path: `parallel` (multi-GPU detection over
 torch.distributed: window-band sharding and frame data parallelism,
 `ShardedFaceCascade`, `make_mesh`, `init_distributed`), `oracle` (the
 NumPy oracle, a copy of the JAX package's), `tools` (`paritydiff`,
-`make_golden`, and the kernels' timing sweeps) and `web` (the serving
+`make_golden`, and the kernels' timing sweeps), `web` (the serving
 surface: the detection engines, the web server `python -m
-pigo_tpu_torch.web.main` and its load client).
+pigo_tpu_torch.web.main` and its load client) and `demos` (the seven
+realtime demos, `python -m pigo_tpu_torch.demos.<name>`).
 """
 
 from __future__ import annotations

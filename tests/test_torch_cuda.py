@@ -617,3 +617,34 @@ def test_stream_engine_on_card_equals_detect(cuda_device, gray):
         engine.close()
     assert len(got) == 12 and bench_client.match_once(got, {"on": want})
     assert all(len(r) == 2 and len(r[0]["landmarks"]) == 15 for r in want)
+
+
+def test_facial_landmark_demo_on_card_equals_detect(cuda_device, gray):
+    """demos.facial_landmark's main at its defaults (the card's cuda
+    engine, seed 0) over two 480x640 frames: frame i's results equal
+    detect(frame_i, seed i), one face_cascade and two pupil_walk launches
+    a frame, and each frame drawn on."""
+    from pigo_tpu_torch.demos import facial_landmark
+    from pigo_tpu_torch.demos.common import KeepSink
+    from pigo_tpu_torch.web import engines
+
+    tiled = np.tile(gray, (2, 2))[:480, :640]
+    grays = [np.ascontiguousarray(np.roll(tiled, k, axis=1)) for k in (0, 1)]
+    frames = [np.repeat(g[:, :, None], 3, axis=2) for g in grays]
+
+    sink = KeepSink()
+    face0 = face_cuda.face_cascade_launches
+    walk0 = pupil_cuda.pupil_walk_launches
+    stats = facial_landmark.main([], source=[f.copy() for f in frames],
+                                 sink=sink)
+    assert stats["frames"] == 2
+    assert face_cuda.face_cascade_launches - face0 == 2
+    assert pupil_cuda.pupil_walk_launches - walk0 == 4
+    det = FaceDetector()
+    for i, g in enumerate(grays):
+        want = engines.result_dicts(det.detect(
+            g, 480, 640, CascadeParams(100, 600, 0.1, 1.1),
+            iou_threshold=0.2, generator=torch.Generator().manual_seed(i)))
+        assert sink.results[i] == want
+        assert len(want) == 2 and len(want[0]["landmarks"]) == 15
+        assert not np.array_equal(sink.frames[i], frames[i])

@@ -272,9 +272,9 @@ def test_loaders_and_cluster_export(face_forest):
 def test_package_imports_without_jax_pigo_tpu_or_pillow():
     """`import pigo_tpu_torch` and every module of it (walked with
     pkgutil.walk_packages: the host engine, the CLI, the drawing, the
-    tools and the web server among them) load no jax, no pigo_tpu module,
-    nothing of examples/, no Pillow and no OpenCV. Run in a fresh
-    interpreter: this one has imported jax already."""
+    tools, the web server and the demos among them) load no jax, no
+    pigo_tpu module, nothing of examples/, no Pillow and no OpenCV. Run in
+    a fresh interpreter: this one has imported jax already."""
     code = r"""
 import importlib, pkgutil, sys
 sys.modules["PIL"] = None  # importing Pillow would fail
@@ -298,5 +298,8 @@ print("BAD", bad)
     assert "BAD []" in proc.stdout, proc.stdout
     for name in ("native", "cli", "io.draw", "utils.spinner", "detector",
                  "tools.face_sweep", "ops.cluster_device", "web.engines",
-                 "web.main", "web.bench_client"):
+                 "web.main", "web.bench_client", "demos.common",
+                 "demos.facedet", "demos.faceblur", "demos.puploc",
+                 "demos.facial_landmark", "demos.blinkdet",
+                 "demos.masquerade", "demos.talk_detector"):
         assert f"'pigo_tpu_torch.{name}'" in proc.stdout, name
