@@ -51,7 +51,6 @@ so the pad is never read), as pigo_tpu/detector.py:626-647 does.
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
 
 import numpy as np
@@ -76,6 +75,7 @@ from pigo_tpu_torch.models.pupil import (
 from pigo_tpu_torch.ops import pupil_dense
 from pigo_tpu_torch.ops.cluster import cluster_detections
 from pigo_tpu_torch.ops.cluster_device import MAX_CAPACITY, cluster_device
+from pigo_tpu_torch.utils import profiling
 from pigo_tpu_torch.utils.device import resolve_device
 
 # CLI constants (cmd/pigo/main.go:54, :360, :404)
@@ -609,8 +609,9 @@ class FaceDetector:
 
     def _faces(self, ticket, iou_threshold: float) -> list[Detection]:
         """Blocking half of the face stage: hits -> clustered detections."""
-        clusters = cluster_detections(self.face._collect(ticket)[0],
-                                      iou_threshold)
+        hits = self.face._collect(ticket)[0]
+        with profiling.span("cluster.host"):
+            clusters = cluster_detections(hits, iou_threshold)
         return [Detection(row=int(r), col=int(c), scale=int(s), q=float(q))
                 for r, c, s, q in clusters]
 
@@ -655,52 +656,60 @@ class FaceDetector:
         every qualifying face of a frame and the download of their
         medians, enqueued without waiting for the device. The walks read
         the frame the face stage uploaded. None when no face qualifies."""
-        eyed = [r for r in results if r.face.scale > MIN_EYE_FACE_SCALE]
-        if self.pupil is None or not eyed:
-            return None
-        f = len(eyed)
-        dev = self.device
-        frame = face_ticket.frames[0]
-        rows, dim = frame.shape
-        cols = face_ticket.cols
-        erow, ecol, escale = to_device(
-            eye_anchors([r.face for r in eyed]).T, dev, torch.float32)
-        u_eyes, u_lmk = self._uniforms(f, perturbs, generator, uniforms)
-        lmk = self.landmarks
-        cids = flips = None
-        if lmk is not None:
-            cids, flips = lmk.schedule_arrays(f)
-            cids = to_device(cids, dev, torch.int32)
-            flips = to_device(flips, dev, torch.bool)
-            u_lmk = to_device(u_lmk, dev, torch.float32)
-        out = fused_post(
-            erow, ecol, escale, frame.reshape(-1), self.pupil.tensors,
-            None if lmk is None else lmk.tensors,
-            to_device(u_eyes, dev, torch.float32), u_lmk, cids, flips,
-            rows=rows, cols=cols, dim=dim, angle=angle)
-        ticket = _PostTicket(
-            eyed=eyed, perturbs=perturbs, out=out,
-            npts=0 if lmk is None else len(lmk.point_schedule))
-        if dev.type == "cuda":
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            ticket.out = host.copy_(out, non_blocking=True)
-            ticket.event = torch.cuda.Event()
-            ticket.event.record(torch.cuda.current_stream(dev))
-        return ticket
+        with profiling.span("post.dispatch"):
+            eyed = [r for r in results
+                    if r.face.scale > MIN_EYE_FACE_SCALE]
+            if self.pupil is None or not eyed:
+                return None
+            f = len(eyed)
+            profiling.count("post.slots", f)
+            dev = self.device
+            frame = face_ticket.frames[0]
+            rows, dim = frame.shape
+            cols = face_ticket.cols
+            erow, ecol, escale = to_device(
+                eye_anchors([r.face for r in eyed]).T, dev, torch.float32)
+            u_eyes, u_lmk = self._uniforms(f, perturbs, generator, uniforms)
+            lmk = self.landmarks
+            cids = flips = None
+            if lmk is not None:
+                cids, flips = lmk.schedule_arrays(f)
+                cids = to_device(cids, dev, torch.int32)
+                flips = to_device(flips, dev, torch.bool)
+                u_lmk = to_device(u_lmk, dev, torch.float32)
+            out = fused_post(
+                erow, ecol, escale, frame.reshape(-1), self.pupil.tensors,
+                None if lmk is None else lmk.tensors,
+                to_device(u_eyes, dev, torch.float32), u_lmk, cids, flips,
+                rows=rows, cols=cols, dim=dim, angle=angle)
+            ticket = _PostTicket(
+                eyed=eyed, perturbs=perturbs, out=out,
+                npts=0 if lmk is None else len(lmk.point_schedule))
+            if dev.type == "cuda":
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                ticket.out = host.copy_(out, non_blocking=True)
+                ticket.event = torch.cuda.Event()
+                ticket.event.record(torch.cuda.current_stream(dev))
+            return ticket
 
     @staticmethod
     def _collect_post(ticket: _PostTicket | None) -> None:
         """Blocking half: wait for the medians and attach them."""
-        if ticket is None:
-            return
-        if ticket.event is not None:
-            ticket.event.synchronize()
-        out = ticket.out.numpy()
-        f = len(ticket.eyed)
-        eyes = out[:, :2 * f]
-        lmk = out[:, 2 * f:].reshape(3, f, ticket.npts)
-        for i, res in enumerate(ticket.eyed):
-            _attach_post(res, eyes, lmk, i, ticket.npts, ticket.perturbs)
+        with profiling.span("post.collect"):
+            if ticket is None:
+                return
+            with profiling.span("post.wait"):
+                if ticket.event is not None:
+                    ticket.event.synchronize()
+            out = ticket.out.numpy()
+            f = len(ticket.eyed)
+            profiling.count("post.faces", f)
+            eyes = out[:, :2 * f]
+            lmk = out[:, 2 * f:].reshape(3, f, ticket.npts)
+            for i, res in enumerate(ticket.eyed):
+                _attach_post(res, eyes, lmk, i, ticket.npts,
+                             ticket.perturbs)
 
     # ------------------------------------------------------- entry points
 
@@ -716,13 +725,14 @@ class FaceDetector:
         2 + 15 sequential RunDetector calls per face,
         cmd/pigo/main.go:422-564). `uniforms=(u_eyes [2F, P, 3],
         u_lmk [15F, P, 3])` replaces the generator's draws."""
-        frames = self._frames(gray, rows, cols, angle)
-        ticket = self._dispatch_faces(frames, self.face._single, params,
-                                      angle)
-        results = self._results(ticket, iou_threshold)
-        self._collect_post(self._dispatch_post(results, ticket, perturbs,
-                                               generator, uniforms, angle))
-        return results
+        with profiling.span("detect"):
+            frames = self._frames(gray, rows, cols, angle)
+            ticket = self._dispatch_faces(frames, self.face._single,
+                                          params, angle)
+            results = self._results(ticket, iou_threshold)
+            self._collect_post(self._dispatch_post(
+                results, ticket, perturbs, generator, uniforms, angle))
+            return results
 
     def detect_stream(self, frames, params: CascadeParams = CascadeParams(),
                       angle: float = 0.0, iou_threshold: float = 0.15,
@@ -773,7 +783,7 @@ class FaceDetector:
                              params: CascadeParams = CascadeParams(),
                              angle: float = 0.0, iou_threshold: float = 0.15,
                              perturbs: int = PERTURBS, seed: int = 0,
-                             depth: int = 4, stats=None):
+                             depth: int = 4):
         """Device-resident streaming pipeline over [rows, cols] uint8
         frames: per frame the face stage, the clustering, the face gating
         and both walks are enqueued with no host synchronisation, and the
@@ -786,8 +796,7 @@ class FaceDetector:
         that the frames behind it are sized by its face count (one
         escalation at most at a stream's start, not one per frame in
         flight). A detector without pupils or landmarks runs
-        `detect_stream`. `stats`, a utils.profiling.PipelineStats, times
-        the "dispatch" and "collect" stages."""
+        `detect_stream`."""
         if self.pupil is None or self.landmarks is None:
             yield from self.detect_stream(frames, params, angle,
                                           iou_threshold, perturbs, seed,
@@ -795,19 +804,12 @@ class FaceDetector:
             return
         stream = DeviceStream(self, (params, angle, iou_threshold, perturbs),
                               depth)
-        stage = (stats.stage if stats is not None
-                 else lambda name, items=0: contextlib.nullcontext())
         for i, frame in enumerate(frames):
-            with stage("dispatch", items=1):
-                stream.submit(frame, seed + i)
+            stream.submit(frame, seed + i)
             if stream.full:
-                with stage("collect", items=1):
-                    results = stream.collect_oldest()
-                yield results
+                yield stream.collect_oldest()
         while len(stream):
-            with stage("collect", items=1):
-                results = stream.collect_oldest()
-            yield results
+            yield stream.collect_oldest()
 
     def _device_tables(self, slots: int):
         """The landmark schedule's cascade ids and flips over `slots` face
@@ -826,27 +828,41 @@ class FaceDetector:
         """Async half: the frame's upload, face stage, jitter draw and
         upload, frame program and the download of its result, enqueued
         without waiting for the device."""
-        params, angle, iou_threshold, perturbs = args
-        if caps is None:
-            caps = self.device_caps
-            if self._auto_caps and self._recent_face_counts:
-                most = max(self._recent_face_counts)
-                want = max(1, most + most // 2)
-                caps = (caps[0], caps[1], min(1 << (want - 1).bit_length(),
-                                              DEV_CAPS_ESCALATED[2]))
-        dense_cap, tail_cap, s = caps
-        npts = len(self.landmarks.point_schedule)
-        ticket = _FrameTicket(frame=frame, args=args, seed=seed,
-                              caps=tuple(caps), slot=slot, npts=npts)
-        face = self._dispatch_faces(
-            self._frames(frame, frame.shape[-2], frame.shape[-1], angle),
-            slot.face, params, angle, download=False)
-        if face.q is None:  # frame smaller than the smallest face
+        with profiling.span("stream.dispatch"):
+            params, angle = args[:2]
+            if caps is None:
+                caps = self.device_caps
+                if self._auto_caps and self._recent_face_counts:
+                    most = max(self._recent_face_counts)
+                    want = max(1, most + most // 2)
+                    caps = (caps[0], caps[1],
+                            min(1 << (want - 1).bit_length(),
+                                DEV_CAPS_ESCALATED[2]))
+            ticket = _FrameTicket(
+                frame=frame, args=args, seed=seed, caps=tuple(caps),
+                slot=slot, npts=len(self.landmarks.point_schedule))
+            face = self._dispatch_faces(
+                self._frames(frame, frame.shape[-2], frame.shape[-1], angle),
+                slot.face, params, angle, download=False)
+            if face.q is None:  # frame smaller than the smallest face
+                return ticket
+            with profiling.span("post.dispatch"):
+                self._dispatch_frame_post(ticket, face)
             return ticket
+
+    def _dispatch_frame_post(self, ticket: _FrameTicket, face) -> None:
+        """The frame's jitter draw and upload, its host tail's staging,
+        the frame program over the face stage's packed list `face` and the
+        download of its result, into `ticket`."""
+        _, angle, iou_threshold, perturbs = ticket.args
+        dense_cap, tail_cap, s = ticket.caps
+        npts, slot = ticket.npts, ticket.slot
+        profiling.count("post.slots", s)
         n_uniforms = (2 * s + s * npts) * perturbs * 3
         u_host, out_host, tail_host = slot.buffers(
             n_uniforms, 2 + 6 * s + 3 * (2 * s + s * npts), tail_cap)
-        torch.rand(n_uniforms, generator=torch.Generator().manual_seed(seed),
+        torch.rand(n_uniforms,
+                   generator=torch.Generator().manual_seed(ticket.seed),
                    out=u_host)
         tail = None
         if face.tail is not None:  # the host tail's hits, then zero rows
@@ -873,7 +889,6 @@ class FaceDetector:
             ticket.event.record(torch.cuda.current_stream(self.device))
         else:
             ticket.out = out
-        return ticket
 
     def _collect_frame_device(self, ticket: _FrameTicket) -> list[FaceResult]:
         """Blocking half: one wait for the frame program's result, then the
@@ -885,54 +900,59 @@ class FaceDetector:
         generator. Each rung is counted."""
         global face_slot_escalations, hit_cap_escalations, \
             tail_cap_escalations, detect_fallbacks, device_frame_waits
-        if ticket.out is None:
-            return []
-        if ticket.event is not None:
-            ticket.event.synchronize()
-        device_frame_waits += 1
-        out = ticket.out.numpy()
-        caps = list(ticket.caps)
-        s, npts = caps[2], ticket.npts
-        n_faces = int(out[1])
-        hit_ovf = out[0] > 0.0  # then n_faces is of a cut list
-        face_ovf = not hit_ovf and n_faces > s
-        if hit_ovf:
-            caps[0] = max(DEV_CAPS_ESCALATED[0], caps[0])
-            caps[1] = max(DEV_CAPS_ESCALATED[1], caps[1])
-        elif face_ovf:
-            self._recent_face_counts.append(n_faces)
-            slots = 1 << (n_faces - 1).bit_length()
-            if slots <= DEV_CAPS_ESCALATED[2]:
-                caps[2] = slots
-        if hit_ovf or face_ovf:
-            if tuple(caps) == ticket.caps:  # beyond the top rung
-                detect_fallbacks += 1
-                params, angle, iou_threshold, perturbs = ticket.args
-                frame = ticket.frame
-                return self.detect(
-                    frame, frame.shape[-2], frame.shape[-1], params, angle,
-                    iou_threshold, perturbs,
-                    generator=torch.Generator().manual_seed(ticket.seed))
+        with profiling.span("stream.collect"):
+            if ticket.out is None:
+                return []
+            with profiling.span("stream.wait"):
+                if ticket.event is not None:
+                    ticket.event.synchronize()
+            device_frame_waits += 1
+            out = ticket.out.numpy()
+            caps = list(ticket.caps)
+            s, npts = caps[2], ticket.npts
+            n_faces = int(out[1])
+            hit_ovf = out[0] > 0.0  # then n_faces is of a cut list
+            face_ovf = not hit_ovf and n_faces > s
             if hit_ovf:
-                hit_cap_escalations += 1
-                tail_cap_escalations += int(out[0]) >> 1
-            else:
-                face_slot_escalations += 1
-            return self._collect_frame_device(self._dispatch_frame_device(
-                ticket.frame, ticket.args, ticket.seed, ticket.slot,
-                tuple(caps)))
-        faces = out[2:2 + 4 * s].reshape(s, 4)
-        fvalid = out[2 + 4 * s:2 + 5 * s] > 0.0
-        eyed = out[2 + 5 * s:2 + 6 * s] > 0.0
-        post = out[2 + 6 * s:].reshape(3, 2 * s + s * npts)
-        eyes, lmk = post[:, :2 * s], post[:, 2 * s:].reshape(3, s, npts)
-        results = []
-        for i in np.flatnonzero(fvalid):
-            res = FaceResult(face=Detection(
-                row=int(faces[i, 0]), col=int(faces[i, 1]),
-                scale=int(faces[i, 2]), q=float(faces[i, 3])))
-            if eyed[i]:
-                _attach_post(res, eyes, lmk, i, npts, ticket.args[3])
-            results.append(res)
-        self._recent_face_counts.append(len(results))
-        return results
+                caps[0] = max(DEV_CAPS_ESCALATED[0], caps[0])
+                caps[1] = max(DEV_CAPS_ESCALATED[1], caps[1])
+            elif face_ovf:
+                self._recent_face_counts.append(n_faces)
+                slots = 1 << (n_faces - 1).bit_length()
+                if slots <= DEV_CAPS_ESCALATED[2]:
+                    caps[2] = slots
+            if hit_ovf or face_ovf:
+                if tuple(caps) == ticket.caps:  # beyond the top rung
+                    detect_fallbacks += 1
+                    params, angle, iou_threshold, perturbs = ticket.args
+                    frame = ticket.frame
+                    gen = torch.Generator().manual_seed(ticket.seed)
+                    return self.detect(
+                        frame, frame.shape[-2], frame.shape[-1], params,
+                        angle, iou_threshold, perturbs, generator=gen)
+                if hit_ovf:
+                    hit_cap_escalations += 1
+                    tail_cap_escalations += int(out[0]) >> 1
+                else:
+                    face_slot_escalations += 1
+                return self._collect_frame_device(
+                    self._dispatch_frame_device(
+                        ticket.frame, ticket.args, ticket.seed, ticket.slot,
+                        tuple(caps)))
+            faces = out[2:2 + 4 * s].reshape(s, 4)
+            fvalid = out[2 + 4 * s:2 + 5 * s] > 0.0
+            eyed = out[2 + 5 * s:2 + 6 * s] > 0.0
+            post = out[2 + 6 * s:].reshape(3, 2 * s + s * npts)
+            eyes = post[:, :2 * s]
+            lmk = post[:, 2 * s:].reshape(3, s, npts)
+            profiling.count("post.faces", int(eyed[fvalid].sum()))
+            results = []
+            for i in np.flatnonzero(fvalid):
+                res = FaceResult(face=Detection(
+                    row=int(faces[i, 0]), col=int(faces[i, 1]),
+                    scale=int(faces[i, 2]), q=float(faces[i, 3])))
+                if eyed[i]:
+                    _attach_post(res, eyes, lmk, i, npts, ticket.args[3])
+                results.append(res)
+            self._recent_face_counts.append(len(results))
+            return results

@@ -65,6 +65,7 @@ from pigo_tpu_torch.convert import face_forest_from_numpy
 from pigo_tpu_torch.ops import face_cuda
 from pigo_tpu_torch.ops.cluster import cluster_detections
 from pigo_tpu_torch.ops.windows import build_window_plan
+from pigo_tpu_torch.utils import profiling
 from pigo_tpu_torch.utils.device import resolve_device
 
 # Window indices travel as f32 in the packed hit list: exact below 2^24.
@@ -324,10 +325,11 @@ class FaceCascade:
         if not scales.size:
             return None
         _, rows, dim = host_frames.shape
-        return [self.native.run_scales(
-            fr, rows, cols, scales, dim=dim,
-            shift_factor=cfg["shift_factor"], angle=angle)
-            for fr in host_frames]
+        with profiling.span("face.tail"):
+            return [self.native.run_scales(
+                fr, rows, cols, scales, dim=dim,
+                shift_factor=cfg["shift_factor"], angle=angle)
+                for fr in host_frames]
 
     def _dispatch(self, frames, slot: _Slot, cfg: dict, angle: float = 0.0,
                   cols: int | None = None, download: bool = True,
@@ -343,32 +345,35 @@ class FaceCascade:
         [B, 1 + 2*cap] list, with the plan's device `coords` beside it,
         and nothing is waited for or copied back
         (FaceDetector.detect_stream_device)."""
-        b, rows, dim = frames.shape
-        cols = dim if cols is None else cols
-        routed, base, scale, coords = self._plan_entry(
-            rows, cols, **cfg, angle_idx=angle_index(angle))
-        cap = self.HIT_CAPACITY
-        ticket = _Ticket(plan=routed.windows, n_frames=b, cap=cap, cols=cols)
-        if routed.windows.num_windows == 0:  # frame smaller than min face
+        with profiling.span("face.dispatch"):
+            b, rows, dim = frames.shape
+            cols = dim if cols is None else cols
+            routed, base, scale, coords = self._plan_entry(
+                rows, cols, **cfg, angle_idx=angle_index(angle))
+            cap = self.HIT_CAPACITY
+            ticket = _Ticket(plan=routed.windows, n_frames=b, cap=cap,
+                             cols=cols)
+            if routed.windows.num_windows == 0:  # smaller than min face
+                return ticket
+            staging, packed_host = slot.buffers(b, rows, dim, cap)
+            ticket.frames = self._upload(frames, staging)
+            ticket.q = self._scores(ticket.frames, routed, base, scale,
+                                    angle_index(angle), cols)
+            packed = compact_hits(ticket.q, cap)
+            if not download:
+                ticket.packed, ticket.coords = packed, coords
+            else:
+                packed_host.copy_(packed, non_blocking=True)
+                ticket.packed = packed_host
+                if self.device.type == "cuda":
+                    ticket.event = torch.cuda.Event()
+                    ticket.event.record(
+                        torch.cuda.current_stream(self.device))
+            if self.host_tail:
+                ticket.tail = self._tail(self._host_frames(
+                    frames if host_frames is None else host_frames),
+                    routed, cfg, angle, cols)
             return ticket
-        staging, packed_host = slot.buffers(b, rows, dim, cap)
-        ticket.frames = self._upload(frames, staging)
-        ticket.q = self._scores(ticket.frames, routed, base, scale,
-                                angle_index(angle), cols)
-        packed = compact_hits(ticket.q, cap)
-        if not download:
-            ticket.packed, ticket.coords = packed, coords
-        else:
-            packed_host.copy_(packed, non_blocking=True)
-            ticket.packed = packed_host
-            if self.device.type == "cuda":
-                ticket.event = torch.cuda.Event()
-                ticket.event.record(torch.cuda.current_stream(self.device))
-        if self.host_tail:
-            ticket.tail = self._tail(self._host_frames(
-                frames if host_frames is None else host_frames),
-                routed, cfg, angle, cols)
-        return ticket
 
     def _collect(self, ticket: _Ticket) -> list[np.ndarray]:
         """Blocking half: wait for the packed hit lists, decode per frame
@@ -376,29 +381,33 @@ class FaceCascade:
         if ticket.q is None:
             return [np.zeros((0, 4), np.float64)
                     for _ in range(ticket.n_frames)]
-        if ticket.event is not None:
-            ticket.event.synchronize()
-        plan, cap = ticket.plan, ticket.cap
-        packed = ticket.packed.numpy()
-        out = []
-        for i in range(ticket.n_frames):
-            count = int(packed[i, 0])
-            if count > cap:  # capacity overflow: dense re-read (rare)
-                q = ticket.q[i].cpu().numpy()
-                idx = np.nonzero(q > 0.0)[0]
-                qv = q[idx]
-            else:
-                idx = packed[i, 1:1 + count].astype(np.int64)
-                qv = packed[i, 1 + cap:1 + cap + count]
-            dets = np.stack([
-                plan.rows_w[idx].astype(np.float64),
-                plan.cols_w[idx].astype(np.float64),
-                plan.scale_w[idx].astype(np.float64),
-                qv.astype(np.float64),
-            ], axis=1)
-            if ticket.tail is not None and ticket.tail[i].shape[0]:
-                dets = merge_scan_order(dets, ticket.tail[i])
-            out.append(dets)
+        with profiling.span("face.collect") as sp:
+            with profiling.span("face.wait"):
+                if ticket.event is not None:
+                    ticket.event.synchronize()
+            plan, cap = ticket.plan, ticket.cap
+            packed = ticket.packed.numpy()
+            out = []
+            for i in range(ticket.n_frames):
+                count = int(packed[i, 0])
+                if count > cap:  # capacity overflow: dense re-read (rare)
+                    q = ticket.q[i].cpu().numpy()
+                    idx = np.nonzero(q > 0.0)[0]
+                    qv = q[idx]
+                else:
+                    idx = packed[i, 1:1 + count].astype(np.int64)
+                    qv = packed[i, 1 + cap:1 + cap + count]
+                dets = np.stack([
+                    plan.rows_w[idx].astype(np.float64),
+                    plan.cols_w[idx].astype(np.float64),
+                    plan.scale_w[idx].astype(np.float64),
+                    qv.astype(np.float64),
+                ], axis=1)
+                if ticket.tail is not None and ticket.tail[i].shape[0]:
+                    dets = merge_scan_order(dets, ticket.tail[i])
+                out.append(dets)
+            if sp is not None:
+                sp.items = sum(len(d) for d in out)
         return out
 
     @staticmethod

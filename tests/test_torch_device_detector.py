@@ -30,7 +30,7 @@ from pigo_tpu_torch.detector import CascadeParams
 from pigo_tpu_torch.models.pupil import draw_uniforms
 from pigo_tpu_torch.ops import cluster_device as cd
 from pigo_tpu_torch.ops.cluster import cluster_detections
-from pigo_tpu_torch.utils.profiling import PipelineStats
+from pigo_tpu_torch.utils import profiling
 from test_torch_face_kernel import one_torch_thread  # noqa: F401 (autouse)
 
 CAP = 64
@@ -194,11 +194,10 @@ def _same(a, b):
             and floats(a) == floats(b))
 
 
-def _check_stream(det, frames, params, iou, angle, seed, depth,
-                  stats=None):
+def _check_stream(det, frames, params, iou, angle, seed, depth):
     got = list(det.detect_stream_device(iter(frames), params, angle=angle,
                                         iou_threshold=iou, perturbs=P,
-                                        seed=seed, depth=depth, stats=stats))
+                                        seed=seed, depth=depth))
     assert len(got) == len(frames)
     for i, (frame, res) in enumerate(zip(frames, got)):
         want = det.detect(frame, frame.shape[0], frame.shape[1], params,
@@ -243,18 +242,22 @@ def test_stream_device_equals_detect_upright(depth, sample_gray):
 @pytest.mark.parametrize("depth", [1, 3])
 def test_stream_device_equals_detect_rotated(depth, sample_gray, det):
     """At angle 0.07 the face stage and the eyes run rotated, the points
-    upright, as in `detect`; one wait a frame, no rung; `stats` counts
-    each frame's dispatch and collect."""
+    upright, as in `detect`; one wait a frame, no rung; under a
+    profiler, the program's spans count each frame's dispatch, collect
+    and wait."""
     frames = [np.roll(sample_gray, i, axis=1) for i in range(2)]
     _reset_counts()
-    stats = PipelineStats()
-    got = _check_stream(det, frames, *GOLDEN, 0.07, seed=9, depth=depth,
-                        stats=stats)
+    profiling.TRACE.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = _check_stream(det, frames, *GOLDEN, 0.07, seed=9,
+                            depth=depth)
     assert [len(r) for r in got] == [1, 1]
     assert len(got[0][0].landmarks) == 15
     assert _counts() == (0, 0, 0, 2)
-    assert {k: v.calls for k, v in stats.stages.items()} == {
-        "dispatch": 2, "collect": 2}
+    assert {k: v.calls for k, v in profiling.TRACE.stages.items()
+            if k.startswith("stream.")} == {
+        "stream.dispatch": 2, "stream.collect": 2, "stream.wait": 2}
 
 
 @pytest.mark.parametrize("rung", ["face_slots", "hit_caps", "detect"])
