@@ -31,7 +31,10 @@ the final status line):
      eyes of the faces found in the sample frame and in the 1080p tiling,
      plus seeded random starts, and seeded random forests at the walk's
      edges (1, 20 and 32 trees, depth 1 and 10, flips, a walker count
-     that is no multiple of a block's walkers), upright and rotated;
+     that is no multiple of a block's walkers), upright and rotated; the
+     post stage of both frames' faces, the walk's two ensemble launches
+     (detector.fused_post) against the composition around pupil_walk
+     (detector.composed_post), with the device and enqueue times of each;
   3. main path — FaceCascade on the card in each mode (default,
      prefix=True, tree_cap=32, both): detections and clusters against
      tests/golden/sample_dense.json and tests/golden/sample.json, upright
@@ -611,7 +614,9 @@ def phase_pupil_kernel(frames, det, card) -> dict:
     points anchored on the eyes' medians) and for rotated eyes, each with
     RANDOM_GROUPS seeded random groups besides; then the kernel's and the
     plain version's times on the main path's walks alone, and the bound;
-    then seeded random forests at the walk's edges."""
+    the post stage's ensemble launches against the composition around
+    pupil_walk, bitwise, and the times of both; then seeded random forests
+    at the walk's edges."""
     import torch
 
     from pigo_tpu_torch.ops import pupil_cuda, pupil_dense
@@ -635,6 +640,43 @@ def phase_pupil_kernel(frames, det, card) -> dict:
         check(launches == 1, f"{launches} pupil_walk launches for one walk")
         check(equal, f"pupil_walk != plain walk: {what}")
         return launches, equal, err
+
+    def post_stage(faces, pix, rows, cols):
+        """The post stage of `faces` from seeded uniforms: fused_post's
+        two ensemble launches against composed_post (the tensor ops
+        around two pupil_walk calls) bit for bit, then the device time of
+        each, every launch included, and the host's time to enqueue it."""
+        from pigo_tpu_torch.detector import (composed_post, eye_anchors,
+                                             fused_post)
+
+        f = len(faces)
+        cids, flips = det.landmarks.schedule_arrays(f)
+        args = (*(torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                  for v in eye_anchors(faces).T), pix, det.pupil.tensors,
+                det.landmarks.tensors,
+                *(torch.from_numpy(rng.random((k, 63, 3), dtype=np.float32)
+                                   ).to(dev) for k in (2 * f, 15 * f)),
+                torch.from_numpy(cids).to(dev),
+                torch.from_numpy(flips).to(dev))
+        kw = dict(rows=rows, cols=cols, dim=cols)
+        before = pupil_cuda.pupil_walk_launches
+        got = fused_post(*args, **kw)
+        launches = pupil_cuda.pupil_walk_launches - before
+        want = composed_post(*args, **kw)
+        torch.cuda.synchronize()
+        equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        check(launches == 2, f"{launches} launches for one post stage")
+        check(equal, f"ensemble launches != composition at {f} faces")
+        out = dict(faces=f, launches=launches, bitwise_equal=equal)
+        for key, fn in (("ensemble", fused_post), ("composed", composed_post)):
+            out[f"{key}_ms"] = cuda_ms(lambda fn=fn: fn(*args, **kw), 50,
+                                       True)
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn(*args, **kw)
+            out[f"{key}_host_ms"] = (time.perf_counter() - t0) * 1e3 / 50
+            torch.cuda.synchronize()
+        return out
 
     for name, frame, params in frames:
         rows, cols = frame.shape
@@ -702,6 +744,8 @@ def phase_pupil_kernel(frames, det, card) -> dict:
                 f32_ops=n_ops)
             emit("pupil_kernel", frame=name, rows=rows, cols=cols, faces=f,
                  walk=kind, card=card, **shape[kind])
+        shape["post"] = post_stage(faces, pix, rows, cols)
+        emit("pupil_ensemble", frame=name, card=card, **shape["post"])
         stats["shapes"][name] = shape
 
     # The walk's edges on seeded random forests over the first frame: one
@@ -2552,8 +2596,11 @@ def main() -> int:
         "per_walk": {
             frame: {kind: {k: v[k] for k in ("walkers", "ms", "plain_ms",
                                               "bound_ms", "bound_by")}
-                    for kind, v in shape.items() if kind != "faces"}
+                    for kind, v in shape.items()
+                    if kind not in ("faces", "post")}
             for frame, shape in pstats["shapes"].items()},
+        "post_stage": {frame: shape["post"]
+                       for frame, shape in pstats["shapes"].items()},
     }, {
         "name": "cluster_device",
         "route": "cuda",

@@ -1,6 +1,9 @@
 // Pupil/landmark regression-tree walk for Hopper (sm_90a), kernel C: one
 // warp per walker, one lane per tree, every stage of the cascade in one
-// launch.
+// launch. Two modes share the walk's device code (`walk`): the plain walk
+// of given starts (pigo_pupil_walk), and the ensemble (pigo_pupil_ensemble),
+// which also jitters each walker's start and votes each group's median,
+// so that a frame's post stage is two launches (below).
 //
 // Replaces the TPU kernel pigo_tpu/ops/pupil_pallas.py::_stage_kernel
 // (launched once per stage per patch geometry), which keeps an image patch
@@ -66,7 +69,56 @@
 // launches fell by 14-25% and the 15-face ones by 8-10%; a level still
 // waits on one L1/L2 round trip for its pixels.
 //
+// The ensemble mode. A launch walks G groups of P walkers (the post
+// stage's perturbations: P = 63). For each group it takes an anchor (row,
+// col, scale), a cascade id and a flip, and the row of the uniforms
+// [R, P, 3] that feeds it; walker p reads u[(row * P + p) * 3 + k].
+//   - Jitter, as ops/pupil_dense.make_perturbations, one rounding an
+//     operation in its order: j = scale * 0.15f; r = row + j * (0.5f -
+//     u0); c = col + j * (0.5f - u1); s = scale * (0.925f + 0.15f * u2).
+//   - Landmark anchors (the second launch): a group with no anchor takes
+//     face g / npts's from the eye medians the first launch wrote, as
+//     pigo_tpu_torch.detector.landmark_anchors: the medians truncated,
+//     d and e their differences, dist = sqrt(d * d + e * e), row =
+//     trunc((l + r) / 2 + 0.25f * dist), col = trunc((l + r) / 2 + 0.15f *
+//     dist), scale = 3 * dist; __fsqrt_rn and __fdiv_rn are the correctly
+//     rounded f32 sqrt and division that torch's kernels compute.
+//   - The vote: the element at index mid = round(P / 2), clamped, of
+//     torch.sort's order, per axis. Floats are compared as unsigned keys
+//     (order_key); the walker whose key has `mid` keys before it, ties
+//     broken by walker index, is the median. That is the order torch.sort
+//     gives more than 32 votes on the card (P = 63): stable, with -0.0 and
+//     +0.0 equal (measured at P = 33 to 200), so the result is bit for bit
+//     the sort's. Of 2 to 32 votes its order of a -0.0 and a +0.0 is
+//     another (measured); any other equal votes have equal bits, and a
+//     walk ends at -0.0 only from an anchor of scale 0.
+//   - Placement: one group per thread-block cluster of min(8, ceil(P / 8))
+//     blocks of kWarpsPerBlock walkers (64 warp slots for P = 63, so the
+//     block keeps the 8 warps measured above; a wider group walks in
+//     rounds). Each walker stores its (r, c, s) into the shared memory of
+//     the cluster's first block (distributed shared memory); after a
+//     cluster barrier that block's threads rank the 3P values and write
+//     the medians. A block arrives on the cluster barrier at its start and
+//     waits before its first remote store, so the first block's shared
+//     memory exists when it is written, and the walk overlaps the wait.
+//     The cluster primitives are inline PTX, as CUTLASS writes them:
+//     with cooperative_groups' header the library took 5.8-6.6 s to build
+//     against 3.1-3.2 s (3.2 and 2.8 s before the ensemble mode).
+// On an H100 (tools/face_sweep.py, case post: both launches of a frame's
+// post stage; PERF.md) the two launches take 0.041 ms at one face and
+// 0.171 ms at 15, against 0.039 and 0.154 ms for the plain walks alone,
+// which the composition around them (jitter, three sorts a walk, landmark
+// anchors: some 30 small kernels) surrounded.
+//
 // Measured and rejected (same tool; "one face" and "15 faces" as above):
+//   - The ensemble's vote by ticket: a group's blocks run independent, each
+//     stores its walkers' results in global scratch, and the last block to
+//     arrive (an atomicInc ticket that resets itself) reads them back and
+//     selects. 15% slower at one face (0.047 against 0.041 ms), 1.5% faster
+//     at 15 faces (0.169 against 0.171), and it needs a scratch buffer and
+//     zeroed tickets on every launch's stream. Clusters of at most 4
+//     blocks (32 walkers at once, two rounds): 73% slower at one face and
+//     14% at 15 faces.
 //   - Loading the next stage's roots during a stage (they do not depend on
 //     the walk): 1-2% slower at one face and 3% at 15 faces.
 //   - The runtime-trip sum loop: 4-5% slower at one face, 3% faster at 15
@@ -91,6 +143,9 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
+// The most blocks of one ensemble group's thread-block cluster (the
+// portable cluster size): 64 walkers of a group walk at once.
+constexpr int kEnsembleBlocks = 8;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ float round_half_away(float x) {
@@ -133,46 +188,37 @@ struct Probe {
   }
 };
 
+// What every walker of a launch reads: the frame and the stacked forest.
+struct Forest {
+  const uint8_t* pixels;  // [nrows * dim], row stride dim
+  int nrows, ncols, dim;
+  const char4* codes1;    // the word before the codes [NC, S, T, 1 << depth]
+  const float4* leaf_pairs;  // preds [NC, S, T, L / 2] (dr, dc, dr, dc)
+  int num_cascades, stages, trees, depth;
+  float scale_mult, qsin_v, qcos_v;  // qsin_v, qcos_v: rotated only
+};
+
+// One walker's every stage, in the calling warp (lane = its tree): (r, c,
+// s) in, refined (r, c, s) out, the same in every lane.
 template <bool kRotated>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock) pupil_walk_kernel(
-    const uint8_t* __restrict__ pixels,  // [nrows * dim], row stride dim
-    int nrows, int ncols, int dim,
-    const char4* __restrict__ codes1,    // the word before the codes
-                                         // [NC, S, T, 1 << depth]
-    const float4* __restrict__ leaf_pairs,  // preds [NC, S, T, L / 2]
-                                            // (dr, dc, dr, dc)
-    int num_cascades, int stages, int trees, int depth, float scale_mult,
-    float qsin_v, float qcos_v,          // rotated only
-    const int* __restrict__ casc_id,     // [n], each in [0, NC)
-    const int* __restrict__ col_sign,    // [n] +1 or -1 (vertical flip)
-    const float* __restrict__ r0, const float* __restrict__ c0,
-    const float* __restrict__ s0,        // [n] walker starts
-    long long n, float* __restrict__ out)  // [3, n] = (r, c, s)
-{
-  const long long w = blockIdx.x * (long long)kWarpsPerBlock
-                      + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (w >= n) return;  // the whole warp: one walker per warp
-  const int leaves = 1 << depth;
-  const int cs = __ldg(col_sign + w);
-  const float sign = static_cast<float>(cs);
-  const int cid = __ldg(casc_id + w);
+__device__ __forceinline__ void walk(const Forest& f, int lane, int cid,
+                                     int cs, float& r, float& c, float& s) {
   // An id outside the stacked forest faults the launch before any table
   // read, as a device-side index check does (the wrapper checks host ids).
-  if (cid < 0 || cid >= num_cascades) __trap();
-  const long long casc_base = (long long)cid * stages * trees * leaves;
-  const long long stage_nodes = (long long)trees * leaves;
-  float r = __ldg(r0 + w);
-  float c = __ldg(c0 + w);
-  float s = __ldg(s0 + w);
+  if (cid < 0 || cid >= f.num_cascades) __trap();
+  const int leaves = 1 << f.depth;
+  const float sign = static_cast<float>(cs);
+  const long long stage_nodes = (long long)f.trees * leaves;
   // this lane's tree in stage 0 (lanes past T walk no tree)
-  long long tree = casc_base + (long long)lane * leaves;
+  long long tree = (long long)cid * f.stages * stage_nodes
+                   + (long long)lane * leaves;
 
-  for (int i = 0; i < stages; ++i, tree += stage_nodes) {
-    Probe<kRotated> bintest{pixels, nrows, ncols, dim, cs, 0, 0, 0, 0, 0};
+  for (int i = 0; i < f.stages; ++i, tree += stage_nodes) {
+    Probe<kRotated> bintest{f.pixels, f.nrows, f.ncols, f.dim, cs,
+                            0, 0, 0, 0, 0};
     if constexpr (kRotated) {
-      bintest.qsin = static_cast<int>(__fmul_rn(s, qsin_v));
-      bintest.qcos = static_cast<int>(__fmul_rn(s, qcos_v));
+      bintest.qsin = static_cast<int>(__fmul_rn(s, f.qsin_v));
+      bintest.qcos = static_cast<int>(__fmul_rn(s, f.qcos_v));
       bintest.ri = 65536 * static_cast<int>(r);
       bintest.ci = 65536 * static_cast<int>(c);
     } else {
@@ -181,18 +227,19 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) pupil_walk_kernel(
       bintest.si = static_cast<int>(round_half_away(s));
     }
     float dr_t = 0.0f, dc_t = 0.0f;
-    if (lane < trees) {
-      const char4* node = codes1 + tree;  // 1-based: node j at node[j]
+    if (lane < f.trees) {
+      const char4* node = f.codes1 + tree;  // 1-based: node j at node[j]
       char4 code = __ldg(node + 1);
       int j = 1;
-      for (int d = 0; d + 1 < depth; ++d) {
+      for (int d = 0; d + 1 < f.depth; ++d) {
         const int2 kids = __ldg(reinterpret_cast<const int2*>(node) + j);
         const bool bit = bintest(code);
         j = 2 * j + (bit ? 1 : 0);
         code = unpack(bit ? kids.y : kids.x);
       }
       // the last level: leaves (2j, 2j + 1) - L, a 16-byte pair
-      const float4 pair = __ldg(leaf_pairs + (tree >> 1) + (j - leaves / 2));
+      const float4 pair =
+          __ldg(f.leaf_pairs + (tree >> 1) + (j - leaves / 2));
       const bool bit = bintest(code);
       dr_t = bit ? pair.z : pair.x;
       dc_t = __fmul_rn(sign, bit ? pair.w : pair.y);
@@ -204,20 +251,203 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) pupil_walk_kernel(
     for (int t = 1; t < 32; ++t) {
       const float vr = __shfl_sync(kFullMask, dr_t, t);
       const float vc = __shfl_sync(kFullMask, dc_t, t);
-      if (t < trees) {
+      if (t < f.trees) {
         dr = __fadd_rn(dr, vr);
         dc = __fadd_rn(dc, vc);
       }
     }
     r = __fadd_rn(r, __fmul_rn(dr, s));
     c = __fadd_rn(c, __fmul_rn(dc, s));
-    s = __fmul_rn(s, scale_mult);
+    s = __fmul_rn(s, f.scale_mult);
   }
+}
+
+// The plain walk: one walker per warp from given starts.
+template <bool kRotated>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock) pupil_walk_kernel(
+    const Forest f,
+    const int* __restrict__ casc_id,     // [n], each in [0, NC)
+    const int* __restrict__ col_sign,    // [n] +1 or -1 (vertical flip)
+    const float* __restrict__ r0, const float* __restrict__ c0,
+    const float* __restrict__ s0,        // [n] walker starts
+    long long n, float* __restrict__ out)  // [3, n] = (r, c, s)
+{
+  const long long w = blockIdx.x * (long long)kWarpsPerBlock
+                      + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= n) return;  // the whole warp: one walker per warp
+  float r = __ldg(r0 + w);
+  float c = __ldg(c0 + w);
+  float s = __ldg(s0 + w);
+  walk<kRotated>(f, lane, __ldg(casc_id + w), __ldg(col_sign + w), r, c, s);
   if (lane == 0) {
     out[w] = r;
     out[n + w] = c;
     out[2 * n + w] = s;
   }
+}
+
+// The ensemble: G groups of P jittered walkers and each group's median.
+struct Ensemble {
+  Forest f;
+  const int* casc_id;       // [G], or null: cascade 0
+  const uint8_t* flips;     // [G] bool, or null: no flip
+  // [G] anchors each, or null: group g anchors on face g / npts's
+  // landmark anchor, from the eye medians in out's columns 2 (g / npts)
+  // (left) and 2 (g / npts) + 1 (right)
+  const float *anchor_r, *anchor_c, *anchor_s;
+  int npts;
+  const float* u;           // [u_nrows, P, 3] uniforms
+  const long long* u_rows;  // [G] group g's row of u, or null: row g
+  long long u_nrows, groups;
+  int perturbs, mid;        // P; the median's index in sorted order
+  float* out;               // [3, out_stride]: group g's median at
+  long long out_stride, out_col0;  // column out_col0 + g
+};
+
+// pigo_tpu_torch.detector.landmark_anchors for one face, in its order of
+// f32 roundings: the voted eyes truncated, then the geometry.
+__device__ __forceinline__ void landmark_anchor(const Ensemble& e,
+                                                long long face, float& row,
+                                                float& col, float& scale) {
+  const float* eyes = e.out + 2 * face;
+  const float ler = truncf(eyes[0]), rer = truncf(eyes[1]);
+  const float lec = truncf(eyes[e.out_stride]);
+  const float rec = truncf(eyes[e.out_stride + 1]);
+  const float d = __fsub_rn(ler, rer), dc = __fsub_rn(lec, rec);
+  const float dist =
+      __fsqrt_rn(__fadd_rn(__fmul_rn(d, d), __fmul_rn(dc, dc)));
+  row = truncf(__fadd_rn(__fdiv_rn(__fadd_rn(ler, rer), 2.0f),
+                         __fmul_rn(0.25f, dist)));
+  col = truncf(__fadd_rn(__fdiv_rn(__fadd_rn(lec, rec), 2.0f),
+                         __fmul_rn(0.15f, dist)));
+  scale = __fmul_rn(3.0f, dist);
+}
+
+// Thread-block cluster primitives (PTX, sm_90), as CUTLASS writes them.
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_blocks() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// Every block's stores before it are seen by every block after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n\t"
+               "barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// Stores v at `addr`, a place in this block's shared memory, in the
+// shared memory of the cluster's block `rank`.
+__device__ __forceinline__ void store_in_block(float* addr, unsigned rank,
+                                               float v) {
+  const unsigned local =
+      static_cast<unsigned>(__cvta_generic_to_shared(addr));
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;"
+               :: "r"(remote), "f"(v) : "memory");
+}
+
+// A float's place in torch.sort's order as an unsigned key. -0.0 and
+// +0.0 get one key: the card's sort of a group's votes holds them equal
+// and keeps them in walker order, as it does every tie.
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned b = v == 0.0f ? 0u : __float_as_uint(v);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// One group per thread-block cluster; its walkers' results meet in the
+// shared memory of the cluster's first block, which selects the medians.
+template <bool kRotated>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+pupil_walk_kernel_ensemble(const Ensemble e) {
+  extern __shared__ float votes[];  // the first block's: [3, P]
+  const unsigned blocks = cluster_blocks(), rank = cluster_rank();
+  const long long g = blockIdx.x / blocks;
+  const int lane = threadIdx.x % 32;
+  const int P = e.perturbs;
+  const int slots = blocks * kWarpsPerBlock;
+  // Arrive now, wait before the first store into the first block's
+  // shared memory: by then every block of the cluster has started.
+  cluster_arrive_relaxed();
+  float row0, col0, scale0;
+  if (e.anchor_r != nullptr) {
+    row0 = __ldg(e.anchor_r + g);
+    col0 = __ldg(e.anchor_c + g);
+    scale0 = __ldg(e.anchor_s + g);
+  } else {
+    landmark_anchor(e, g / e.npts, row0, col0, scale0);
+  }
+  const int cid = e.casc_id != nullptr ? __ldg(e.casc_id + g) : 0;
+  const int cs = (e.flips != nullptr && __ldg(e.flips + g)) ? -1 : 1;
+  long long row = g;
+  if (e.u_rows != nullptr) {
+    row = __ldg(e.u_rows + g);
+    if (row < 0 || row >= e.u_nrows) __trap();
+  }
+  const float* u = e.u + row * P * 3;
+  // pupil_dense.make_perturbations: one f32 rounding an operation
+  const float jitter = __fmul_rn(scale0, 0.15f);
+  const int rounds = (P + slots - 1) / slots;
+  for (int k = 0; k < rounds; ++k) {
+    const int p = k * slots + rank * kWarpsPerBlock + threadIdx.x / 32;
+    float r = 0.0f, c = 0.0f, s = 0.0f;
+    if (p < P) {  // the whole warp
+      const float* up = u + 3 * p;
+      r = __fadd_rn(row0, __fmul_rn(jitter, __fsub_rn(0.5f, __ldg(up))));
+      c = __fadd_rn(col0, __fmul_rn(jitter, __fsub_rn(0.5f, __ldg(up + 1))));
+      s = __fmul_rn(scale0,
+                    __fadd_rn(0.925f, __fmul_rn(0.15f, __ldg(up + 2))));
+      walk<kRotated>(e.f, lane, cid, cs, r, c, s);
+    }
+    if (k == 0) cluster_wait();
+    if (p < P && lane == 0) {
+      store_in_block(votes + p, 0, r);
+      store_in_block(votes + P + p, 0, c);
+      store_in_block(votes + 2 * P + p, 0, s);
+    }
+  }
+  cluster_sync();  // the votes are in; only the first block goes on
+  if (rank != 0) return;
+  // Each (axis, walker) counts the votes that sort before it (ties by
+  // walker index); the one with `mid` below it is the median.
+  for (int i = threadIdx.x; i < 3 * P; i += blockDim.x) {
+    const int axis = i / P, p = i - axis * P;
+    const float* v = votes + axis * P;
+    const unsigned key = order_key(v[p]);
+    int below = 0;
+    for (int j = 0; j < P; ++j) {
+      const unsigned kj = order_key(v[j]);
+      below += (kj < key) || (kj == key && j < p);
+    }
+    if (below == e.mid) e.out[axis * e.out_stride + e.out_col0 + g] = v[p];
+  }
+}
+
+Forest forest(const void* pixels, int nrows, int ncols, int dim,
+              const void* codes, const void* preds, int num_cascades,
+              int stages, int trees, int depth, float scale_mult,
+              float qsin_v, float qcos_v) {
+  return Forest{static_cast<const uint8_t*>(pixels), nrows, ncols, dim,
+                static_cast<const char4*>(codes) - 1,
+                static_cast<const float4*>(preds), num_cascades, stages,
+                trees, depth, scale_mult, qsin_v, qcos_v};
 }
 
 }  // namespace
@@ -239,14 +469,58 @@ extern "C" int pigo_pupil_walk(
   auto kernel = rotated ? pupil_walk_kernel<true> : pupil_walk_kernel<false>;
   kernel<<<(unsigned)blocks, 32 * kWarpsPerBlock, 0,
            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(pixels), nrows, ncols, dim,
-      static_cast<const char4*>(codes) - 1,
-      static_cast<const float4*>(preds), num_cascades, stages, trees, depth,
-      scale_mult, qsin_v, qcos_v, static_cast<const int*>(casc_id),
-      static_cast<const int*>(col_sign), static_cast<const float*>(r0),
-      static_cast<const float*>(c0), static_cast<const float*>(s0), n,
-      static_cast<float*>(out));
+      forest(pixels, nrows, ncols, dim, codes, preds, num_cascades, stages,
+             trees, depth, scale_mult, qsin_v, qcos_v),
+      static_cast<const int*>(casc_id), static_cast<const int*>(col_sign),
+      static_cast<const float*>(r0), static_cast<const float*>(c0),
+      static_cast<const float*>(s0), n, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The ensemble entry point: `groups` groups of `perturbs` walkers, each
+// group's medians into out[:, out_col0 + g] (Ensemble's fields). One
+// cluster of min(kEnsembleBlocks, ceil(P / kWarpsPerBlock)) blocks a
+// group, 12 P bytes of shared memory a block. Same contract as
+// pigo_pupil_walk.
+extern "C" int pigo_pupil_ensemble(
+    const void* pixels, int nrows, int ncols, int dim,
+    const void* codes, const void* preds, int num_cascades, int stages,
+    int trees, int depth,
+    float scale_mult, int rotated, float qsin_v, float qcos_v,
+    const void* casc_id, const void* flips, const void* anchor_r,
+    const void* anchor_c, const void* anchor_s, int npts, const void* u,
+    const void* u_rows, long long u_nrows, long long groups, int perturbs,
+    int mid, void* out, long long out_stride, long long out_col0,
+    void* stream) {
+  if (groups == 0) return 0;
+  const int blocks = min(kEnsembleBlocks,
+                         (perturbs + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const Ensemble e{
+      forest(pixels, nrows, ncols, dim, codes, preds, num_cascades, stages,
+             trees, depth, scale_mult, qsin_v, qcos_v),
+      static_cast<const int*>(casc_id), static_cast<const uint8_t*>(flips),
+      static_cast<const float*>(anchor_r),
+      static_cast<const float*>(anchor_c),
+      static_cast<const float*>(anchor_s), npts,
+      static_cast<const float*>(u), static_cast<const long long*>(u_rows),
+      u_nrows, groups, perturbs, mid, static_cast<float*>(out), out_stride,
+      out_col0};
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = blocks;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(groups * blocks));
+  cfg.blockDim = dim3(32 * kWarpsPerBlock);
+  cfg.dynamicSmemBytes = 3 * sizeof(float) * perturbs;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t rc =
+      rotated ? cudaLaunchKernelEx(&cfg, pupil_walk_kernel_ensemble<true>, e)
+              : cudaLaunchKernelEx(&cfg, pupil_walk_kernel_ensemble<false>, e);
+  return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
 }
 
 // The walk's schedule constant: out[0] = walkers (warps) a block.

@@ -68,11 +68,10 @@ from pigo_tpu_torch.models.landmark import LandmarkLocalizer
 from pigo_tpu_torch.models.pupil import (
     PupilLocalizer,
     Puploc,
-    draw_uniforms,
     ensemble_medians,
     to_device,
 )
-from pigo_tpu_torch.ops import pupil_dense
+from pigo_tpu_torch.ops import pupil_cuda, pupil_dense
 from pigo_tpu_torch.ops.cluster import cluster_detections
 from pigo_tpu_torch.ops.cluster_device import MAX_CAPACITY, cluster_device
 from pigo_tpu_torch.utils import profiling
@@ -281,17 +280,62 @@ def landmark_anchors(eyes: torch.Tensor):
 def fused_post(erow, ecol, escale, pixels, pupil: PupilTensors,
                landmarks: PupilTensors | None, u_eyes, u_lmk, lmk_cids,
                lmk_flips, *, rows: int, cols: int, dim: int,
-               angle: float = 0.0) -> torch.Tensor:
+               angle: float = 0.0, u_rows=None) -> torch.Tensor:
     """Eyes + landmarks for F faces, on the pixels' device, with no host
     synchronisation: what pigo_tpu.detector._fused_post_impl computes,
     with its uniforms passed in.
 
     erow/ecol/escale f32 [2F] eye anchors; pixels uint8 [rows*dim];
     u_eyes f32 [2F, P, 3]; u_lmk f32 [F*npts, P, 3]; lmk_cids int32 and
-    lmk_flips bool [F*npts]. Two pupil_walk launches: eyes, then the
-    landmarks anchored on the eyes' medians. The eyes walk rotated at
-    `angle`, the landmarks upright. Returns [3, 2F + F*npts] f32 medians
-    (row, col, scale); with `landmarks=None` the eyes alone."""
+    lmk_flips bool [F*npts]. `u_rows` = (eye_rows int64 [2F], lmk_rows
+    int64 [F*npts]) makes u_eyes and u_lmk tables of rows [R, P, 3]:
+    eye group g draws row eye_rows[g] of u_eyes, landmark group g row
+    lmk_rows[g] of u_lmk (the stream's flat draw, `device_detect`). The
+    eyes walk rotated at `angle`, the landmarks upright, anchored on the
+    eyes' medians. Returns [3, 2F + F*npts] f32 medians (row, col,
+    scale); with `landmarks=None` the eyes alone.
+
+    On the card: two launches of kernel C's ensemble mode
+    (ops/pupil_cuda.pupil_ensemble), eyes then landmarks, each with its
+    jitter and median vote, into one output. On the CPU, or beyond
+    pupil_cuda.MAX_PERTURBS walkers a group, `composed_post`, which it
+    equals bit for bit."""
+    if (pixels.device.type != "cuda"
+            or u_eyes.shape[1] > pupil_cuda.MAX_PERTURBS):
+        return composed_post(erow, ecol, escale, pixels, pupil, landmarks,
+                             u_eyes, u_lmk, lmk_cids, lmk_flips, rows=rows,
+                             cols=cols, dim=dim, angle=angle, u_rows=u_rows)
+    f2 = erow.shape[0]
+    n_lmk = 0 if landmarks is None else lmk_cids.shape[0]
+    eye_rows, lmk_rows = (None, None) if u_rows is None else u_rows
+    out = torch.empty((3, f2 + n_lmk), dtype=torch.float32,
+                      device=pixels.device)
+    kw = dict(nrows=rows, ncols=cols, dim=dim)
+    pupil_cuda.pupil_ensemble(
+        pupil.codes, pupil.preds, out, u_eyes, pixels, col0=0,
+        anchors=(erow, ecol, escale), u_rows=eye_rows,
+        scale_mult=pupil.scale_mult, rotated=angle > 0.0,
+        angle_idx=pupil_dense.angle_index(angle), **kw)
+    if landmarks is not None:
+        pupil_cuda.pupil_ensemble(
+            landmarks.codes, landmarks.preds, out, u_lmk, pixels, col0=f2,
+            npts=n_lmk // (f2 // 2), casc_id=lmk_cids, flips=lmk_flips,
+            u_rows=lmk_rows, scale_mult=landmarks.scale_mult, **kw)
+    profiling.count("post.fused")
+    return out
+
+
+def composed_post(erow, ecol, escale, pixels, pupil: PupilTensors,
+                  landmarks: PupilTensors | None, u_eyes, u_lmk, lmk_cids,
+                  lmk_flips, *, rows: int, cols: int, dim: int,
+                  angle: float = 0.0, u_rows=None) -> torch.Tensor:
+    """`fused_post` composed of tensor operations around two pupil_walk
+    calls (jitter, walk, sort-based median, landmark anchors): its plain
+    route, and on the card the composition the ensemble launches are
+    held to."""
+    if u_rows is not None:
+        u_eyes = u_eyes[u_rows[0]]
+        u_lmk = None if landmarks is None else u_lmk[u_rows[1]]
     f2 = erow.shape[0]
     zeros = torch.zeros(f2, dtype=torch.int32, device=erow.device)
     eyes = ensemble_medians(pupil, zeros, erow, ecol, escale, zeros.bool(),
@@ -401,13 +445,13 @@ def device_detect(packed, coords, pixels, pupil: PupilTensors,
     npts = lmk_cids.shape[0] // s
     epos = torch.cumsum(eyed, 0, dtype=torch.int64)
     rank = torch.where(eyed, epos - 1, 0)[:, None]
-    u_rows = u.reshape(-1, perturbs, 3)
+    table = u.reshape(-1, perturbs, 3)
     eye_rows = 2 * rank + torch.arange(2, device=dev)
     lmk_rows = 2 * epos[-1:] + rank * npts + torch.arange(npts, device=dev)
-    post = fused_post(erow, ecol, escale, pixels, pupil, landmarks,
-                      u_rows[eye_rows.reshape(-1)],
-                      u_rows[lmk_rows.reshape(-1)], lmk_cids, lmk_flips,
-                      rows=rows, cols=cols, dim=dim, angle=angle)
+    post = fused_post(erow, ecol, escale, pixels, pupil, landmarks, table,
+                      table, lmk_cids, lmk_flips, rows=rows, cols=cols,
+                      dim=dim, angle=angle,
+                      u_rows=(eye_rows.reshape(-1), lmk_rows.reshape(-1)))
     flags = torch.cat([overflow, n_faces.to(torch.float32)])
     return torch.cat([flags, faces.reshape(-1), fvalid.to(torch.float32),
                       eyed.to(torch.float32), post.reshape(-1)])
@@ -516,12 +560,15 @@ class DeviceStream:
 @dataclasses.dataclass
 class _PostTicket:
     """One dispatched post stage: the faces it serves, the [3, 2F + F*npts]
-    medians' host buffer (pinned on a card) and its event."""
+    medians (on a card in `staging`, its host buffer, pinned) and its
+    event; `staging` goes back to `pool` once collected."""
 
     eyed: list
     npts: int
     perturbs: int
     out: torch.Tensor
+    staging: torch.Tensor
+    pool: list
     event: object = None
 
 
@@ -564,6 +611,8 @@ class FaceDetector:
         self._recent_face_counts: collections.deque = collections.deque(
             maxlen=8)
         self._lmk_tables: dict[int, tuple] = {}
+        # the post stage's host staging buffers not in flight (_staging)
+        self._post_staging: list[torch.Tensor] = []
         if face is not None and host_tail and not face.host_tail:
             raise ValueError("host_tail=True with a FaceCascade built "
                              "without it: pass host_tail to the FaceCascade")
@@ -631,30 +680,52 @@ class FaceDetector:
 
     # ------------------------------------------------------- post stage
 
-    def _uniforms(self, f: int, perturbs: int, generator, uniforms):
-        """(u_eyes [2F, P, 3], u_lmk [F*npts, P, 3] or None) on the host."""
+    def _uniforms(self, f: int, perturbs: int, generator, uniforms,
+                  out=None):
+        """(u_eyes [2F, P, 3], u_lmk [F*npts, P, 3] or None) on the host,
+        drawn eyes first (or `uniforms` checked); into the host tensors
+        `out` = (eyes, landmarks or None) when given."""
         shapes = [(2 * f, perturbs, 3)]
         if self.landmarks is not None:
             shapes.append((f * len(self.landmarks.point_schedule), perturbs,
                            3))
+        if out is None:
+            out = [torch.empty(shape, dtype=torch.float32)
+                   for shape in shapes]
         if uniforms is None:
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
-            got = [draw_uniforms(shape, generator) for shape in shapes]
+            for u in out[:len(shapes)]:
+                torch.rand(u.shape, generator=generator, out=u)
         else:
-            got = [torch.tensor(np.asarray(u, np.float32))
-                   for u in uniforms[:len(shapes)]]
-            if [tuple(u.shape) for u in got] != shapes:
+            got = [np.asarray(u, np.float32) for u in uniforms[:len(shapes)]]
+            if [u.shape for u in got] != shapes:
                 raise ValueError(f"uniforms must be shaped {shapes}, got "
-                                 f"{[tuple(u.shape) for u in got]}")
-        return got[0], (got[1] if len(got) > 1 else None)
+                                 f"{[u.shape for u in got]}")
+            for u, g in zip(out, got):
+                u.numpy()[...] = g
+        return out[0], (out[1] if len(shapes) > 1 else None)
+
+    def _staging(self, n: int) -> torch.Tensor:
+        """A host buffer of at least n f32 (pinned on a card) from the post
+        stage's pool; `_collect_post` gives it back."""
+        try:
+            buf = self._post_staging.pop()
+        except IndexError:
+            buf = None
+        if buf is None or buf.numel() < n:
+            buf = torch.empty(1 << (n - 1).bit_length(), dtype=torch.float32,
+                              pin_memory=self.device.type == "cuda")
+        return buf
 
     def _dispatch_post(self, results: list[FaceResult], face_ticket,
                        perturbs: int, generator, uniforms,
                        angle: float = 0.0):
         """Async half: the eyes (rotated at `angle`) and landmark walks of
         every qualifying face of a frame and the download of their
-        medians, enqueued without waiting for the device. The walks read
+        medians, enqueued without waiting for the device: one upload of
+        the eye anchors and uniforms, packed in a staging buffer, then
+        `fused_post` and one download into the same buffer. The walks read
         the frame the face stage uploaded. None when no face qualifies."""
         with profiling.span("post.dispatch"):
             eyed = [r for r in results
@@ -666,36 +737,47 @@ class FaceDetector:
             dev = self.device
             frame = face_ticket.frames[0]
             rows, dim = frame.shape
-            cols = face_ticket.cols
-            erow, ecol, escale = to_device(
-                eye_anchors([r.face for r in eyed]).T, dev, torch.float32)
-            u_eyes, u_lmk = self._uniforms(f, perturbs, generator, uniforms)
             lmk = self.landmarks
-            cids = flips = None
-            if lmk is not None:
-                cids, flips = lmk.schedule_arrays(f)
-                cids = to_device(cids, dev, torch.int32)
-                flips = to_device(flips, dev, torch.bool)
-                u_lmk = to_device(u_lmk, dev, torch.float32)
-            out = fused_post(
-                erow, ecol, escale, frame.reshape(-1), self.pupil.tensors,
-                None if lmk is None else lmk.tensors,
-                to_device(u_eyes, dev, torch.float32), u_lmk, cids, flips,
-                rows=rows, cols=cols, dim=dim, angle=angle)
-            ticket = _PostTicket(
-                eyed=eyed, perturbs=perturbs, out=out,
-                npts=0 if lmk is None else len(lmk.point_schedule))
+            npts = 0 if lmk is None else len(lmk.point_schedule)
+            # staging: [erow, ecol, escale (2F each), u_eyes, u_lmk |
+            # medians], the part before the bar uploaded at once
+            n_eye = 2 * f * perturbs * 3
+            n_up = 6 * f + n_eye + f * npts * perturbs * 3
+
+            def parts(buf):
+                return (buf[:2 * f], buf[2 * f:4 * f], buf[4 * f:6 * f],
+                        buf[6 * f:6 * f + n_eye].view(2 * f, perturbs, 3),
+                        buf[6 * f + n_eye:n_up].view(f * npts, perturbs, 3))
+
+            staging = self._staging(n_up + 3 * (2 * f + f * npts))
+            staging.numpy()[:6 * f].reshape(3, 2 * f)[...] = eye_anchors(
+                [r.face for r in eyed]).T
+            self._uniforms(f, perturbs, generator, uniforms,
+                           out=parts(staging)[3:])
+            up = staging[:n_up]
             if dev.type == "cuda":
-                host = torch.empty(out.shape, dtype=out.dtype,
-                                   pin_memory=True)
-                ticket.out = host.copy_(out, non_blocking=True)
+                up = up.to(dev, non_blocking=True)
+            cids, flips = (None, None) if lmk is None else \
+                self._device_tables(f)
+            out = fused_post(
+                *parts(up)[:3], frame.reshape(-1), self.pupil.tensors,
+                None if lmk is None else lmk.tensors, *parts(up)[3:], cids,
+                flips, rows=rows, cols=face_ticket.cols, dim=dim,
+                angle=angle)
+            ticket = _PostTicket(eyed=eyed, perturbs=perturbs, out=out,
+                                 npts=npts, staging=staging,
+                                 pool=self._post_staging)
+            if dev.type == "cuda":
+                ticket.out = staging[n_up:n_up + out.numel()].view(
+                    out.shape).copy_(out, non_blocking=True)
                 ticket.event = torch.cuda.Event()
                 ticket.event.record(torch.cuda.current_stream(dev))
             return ticket
 
     @staticmethod
     def _collect_post(ticket: _PostTicket | None) -> None:
-        """Blocking half: wait for the medians and attach them."""
+        """Blocking half: wait for the medians and attach them; the
+        staging buffer goes back to its pool."""
         with profiling.span("post.collect"):
             if ticket is None:
                 return
@@ -710,6 +792,7 @@ class FaceDetector:
             for i, res in enumerate(ticket.eyed):
                 _attach_post(res, eyes, lmk, i, ticket.npts,
                              ticket.perturbs)
+            ticket.pool.append(ticket.staging)
 
     # ------------------------------------------------------- entry points
 
@@ -813,7 +896,7 @@ class FaceDetector:
 
     def _device_tables(self, slots: int):
         """The landmark schedule's cascade ids and flips over `slots` face
-        slots, on the device, uploaded once per slot count."""
+        slots (or faces), on the device, uploaded once per count."""
         hit = self._lmk_tables.get(slots)
         if hit is None:
             cids, flips = self.landmarks.schedule_arrays(slots)

@@ -171,11 +171,16 @@ def make_perturbations(row, col, scale, u):
     return rows, cols, scales
 
 
+def median_index(perturbs: int) -> int:
+    """The vote's index in sorted order: round(P/2), clamped to P - 1."""
+    return min(int(np.floor(perturbs / 2.0 + 0.5)), perturbs - 1)
+
+
 def median_vote(r, c, s, perturbs: int):
     """Per-axis median at index round(P/2) (puploc.go:266-276), clamped.
 
     r/c/s: [..., P]. Returns ([...], [...], [...]) median triples."""
-    mid = min(int(np.floor(perturbs / 2.0 + 0.5)), perturbs - 1)
+    mid = median_index(perturbs)
     return tuple(torch.sort(v, dim=-1).values[..., mid] for v in (r, c, s))
 
 

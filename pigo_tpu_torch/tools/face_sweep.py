@@ -14,10 +14,11 @@ of any source or shared header (csrc/*.cu, csrc/*.cuh), which must define
 it once: kernel A's `kPhase1Trees`, `kThreads` and `kDenseEighths`
 (face_cascade.cu), kernel B's `kPrefixPhase1Trees`, `kPrefixWindows`,
 `kPrefixThreads` and `kPrefixDenseEighths` (face_prefix.cu), the walk's
-`kWarpsPerBlock` (pupil_walk.cu). The variants are built in parallel,
-then timed in turns on the same inputs (in variant order, then in reverse
-order), each call first held bit for bit against the plain version: a
-case that differs is reported and not timed, and the run exits 1. The
+`kWarpsPerBlock` and `kEnsembleBlocks` (pupil_walk.cu). The variants are
+built in parallel, then timed in turns on the same inputs (in variant
+order, then in reverse order), each call first held bit for bit against
+the plain version: a case that differs is reported and not timed, and the
+run exits 1. The
 inputs are the main path's: the facefinder forest over the sample frame's
 400x320 headline pyramid and its 1080x1920 tiling (the pyramids of
 chip_smoke.py), upright and at angle 0.07, and the detector's walks on
@@ -32,7 +33,11 @@ both. Cases:
   - prefix_all_survive: face_prefix with thresholds that never fail;
   - eyes, landmarks: pupil_walk over the walkers FaceDetector makes for
     the faces of the sample frame (one face, at the golden sample's
-    configuration) and of the 1080p tiling (15 faces).
+    configuration) and of the 1080p tiling (15 faces);
+  - post: the post stage of those faces, detector.fused_post's two
+    launches of the walk's ensemble mode (jitter, walk, median vote and
+    landmark anchors), against its plain route on the CPU; not timed for
+    a library without that entry point.
 Each variant also gives its schedules and the largest per-block worklist:
 for the cascade, the windows of one block still alive after kPhase1Trees
 trees; for the finish, the marks of one block; for the prefix kernel, the
@@ -59,7 +64,8 @@ import torch
 
 from pigo_tpu_torch.detector import (MIN_EYE_FACE_SCALE, Q_THRESH,
                                      CascadeParams, FaceDetector,
-                                     eye_anchors, landmark_anchors)
+                                     eye_anchors, fused_post,
+                                     landmark_anchors)
 from pigo_tpu_torch.models.face import FaceCascade, angle_index
 from pigo_tpu_torch.ops import face_cuda, face_dense, pupil_cuda, pupil_dense
 from pigo_tpu_torch.ops.windows import build_window_plan
@@ -216,7 +222,7 @@ def cases(dev):
     rot = angle_index(ROT_ANGLE)
     gray = np.load(os.path.join(build.PKG_DIR, "assets", "sample_gray.npy"))
     hd = np.tile(gray, (1080 // 400 + 1, 1920 // 320 + 1))[:1080, :1920]
-    det = FaceDetector(device=dev)
+    det, cpu_det = FaceDetector(device=dev), FaceDetector(device="cpu")
     rng = np.random.default_rng(0)
     out, inputs = {}, {}
     for shape, frame, cfg, det_cfg in (("headline", gray, HEADLINE,
@@ -269,8 +275,8 @@ def cases(dev):
             out[f"{shape}/{label}_copy"] = (
                 lambda w=work, m=marks: w.copy_(m), marks, 50)
         rows, cols = frame.shape
-        _, pix, walks = post_walks(det, frame, det_cfg, rng,
-                                   walk=pupil_dense.walk)
+        faces, pix, walks = post_walks(det, frame, det_cfg, rng,
+                                       walk=pupil_dense.walk)
         for kind, (t, walkers) in walks.items():
             w_args = (t.codes, t.preds, *walkers, pix)
             kw = dict(nrows=rows, ncols=cols, dim=cols,
@@ -279,6 +285,23 @@ def cases(dev):
                 lambda a=w_args, kw=kw: torch.stack(
                     pupil_cuda.pupil_walk(*a, **kw)),
                 torch.stack(pupil_dense.walk(*w_args, **kw)), 50)
+        # the post stage: fused_post's two ensemble launches over the
+        # faces, against its plain route on the CPU
+        f = len(faces)
+        cids, flips = det.landmarks.schedule_arrays(f)
+        p_args = [*(torch.from_numpy(np.ascontiguousarray(v))
+                    for v in eye_anchors(faces).T),
+                  pix.cpu(), None, None,
+                  *(torch.from_numpy(rng.random((k, 63, 3), dtype=np.float32))
+                    for k in (2 * f, 15 * f)),
+                  torch.from_numpy(cids), torch.from_numpy(flips)]
+        kw = dict(rows=rows, cols=cols, dim=cols)
+        want = fused_post(*p_args[:4], cpu_det.pupil.tensors,
+                          cpu_det.landmarks.tensors, *p_args[6:], **kw)
+        p_args = [None if a is None else a.to(dev) for a in p_args]
+        p_args[4:6] = det.pupil.tensors, det.landmarks.tensors
+        out[f"{shape}/post"] = (
+            lambda a=p_args, kw=kw: fused_post(*a, **kw), want.to(dev), 50)
     return out, inputs
 
 
@@ -339,7 +362,10 @@ def main(argv=None) -> int:
                     unittest.mock.patch.object(
                         pupil_cuda, "load_kernel", lambda lib=walk: lib):
                 for case, (fn, want, reps) in work.items():
-                    got = fn()
+                    try:
+                        got = fn()
+                    except AttributeError:  # an entry the library lacks
+                        continue
                     torch.cuda.synchronize()
                     if not torch.equal(got, want):
                         wrong[name].append(case)  # not timed

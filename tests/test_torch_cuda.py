@@ -648,3 +648,185 @@ def test_facial_landmark_demo_on_card_equals_detect(cuda_device, gray):
         assert sink.results[i] == want
         assert len(want) == 2 and len(want[0]["landmarks"]) == 15
         assert not np.array_equal(sink.frames[i], frames[i])
+
+
+def _post_inputs(det, f, perturbs, seed, device, stream_slots=None):
+    """Seeded post-stage inputs of F faces on the sample frame: the eye
+    anchors (erow, ecol, escale) [2F], u_eyes [2F, P, 3], u_lmk
+    [15F, P, 3], the landmark ids and flips, and (u_rows or None). With
+    `stream_slots` = S >= F, the stream's layout (device_detect): S slots
+    of which the first F are eyed, pad slots at scale 100, and one flat
+    draw gathered by the eyed faces' ranks through u_rows."""
+    from pigo_tpu_torch.detector import Detection, eye_anchors
+
+    rng = np.random.default_rng(seed)
+    s = f if stream_slots is None else stream_slots
+    faces = [Detection(int(rng.integers(40, 360)), int(rng.integers(40, 280)),
+                       int(rng.integers(60, 240)) if i < f else 100, 9.0)
+             for i in range(s)]
+    anchors = [torch.from_numpy(np.ascontiguousarray(v)).to(device)
+               for v in eye_anchors(faces).T]
+    cids, flips = det.landmarks.schedule_arrays(s)
+    npts = len(det.landmarks.point_schedule)
+    tables = (torch.from_numpy(cids).to(device),
+              torch.from_numpy(flips).to(device))
+    if stream_slots is None:
+        u = [torch.from_numpy(rng.random((k, perturbs, 3), dtype=np.float32)
+                              ).to(device) for k in (2 * f, npts * f)]
+        return anchors, u, tables, None
+    table = torch.from_numpy(rng.random(((2 * s + s * npts), perturbs, 3),
+                                        dtype=np.float32)).to(device)
+    slot = torch.arange(s, device=device)
+    rank = torch.where(slot < f, slot, 0)[:, None]
+    eye_rows = (2 * rank + torch.arange(2, device=device)).reshape(-1)
+    lmk_rows = (2 * f + rank * npts
+                + torch.arange(npts, device=device)).reshape(-1)
+    return anchors, [table, table], tables, (eye_rows, lmk_rows)
+
+
+def _ensemble_against_composition(det, gray, device, f, perturbs=63,
+                                  angle=0.0, landmarks=True, seed=0,
+                                  stream_slots=None):
+    """fused_post's ensemble launches against composed_post (the tensor
+    composition around pupil_walk) on the card: bit for bit, two launches
+    (one without landmarks) against the composition's two walks."""
+    from pigo_tpu_torch import detector as port_det
+
+    anchors, u, tables, u_rows = _post_inputs(det, f, perturbs, seed,
+                                              device, stream_slots)
+    pix = torch.from_numpy(gray.reshape(-1)).to(device)
+    lmk = det.landmarks.tensors if landmarks else None
+    args = (*anchors, pix, det.pupil.tensors, lmk, u[0],
+            u[1] if landmarks else None, *(tables if landmarks
+                                           else (None, None)))
+    kw = dict(rows=400, cols=320, dim=320, angle=angle,
+              u_rows=None if u_rows is None else (
+                  u_rows if landmarks else (u_rows[0], None)))
+    before = pupil_cuda.pupil_walk_launches
+    got = port_det.fused_post(*args, **kw)
+    launches = pupil_cuda.pupil_walk_launches - before
+    want = port_det.composed_post(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches == (2 if landmarks else 1)
+    assert got.shape == want.shape
+    assert np.array_equal(got.cpu().numpy().view(np.int32),
+                          want.cpu().numpy().view(np.int32))
+    return got
+
+
+@pytest.mark.parametrize("landmarks", [True, False])
+@pytest.mark.parametrize("faces", [1, 2, 3, 15, 32])
+def test_ensemble_upright_matches_composition_on_card(cuda_device, gray,
+                                                      faces, landmarks):
+    """The post stage's two ensemble launches (jitter, walk, median vote
+    and landmark anchors in kernel C) equal the composition around
+    pupil_walk bit for bit, upright, at 1 to 32 faces, with and without
+    landmarks."""
+    det = FaceDetector(device=cuda_device)
+    _ensemble_against_composition(det, gray, cuda_device, faces,
+                                  landmarks=landmarks, seed=faces)
+
+
+@pytest.mark.parametrize("angle", [0.07, 0.25])
+@pytest.mark.parametrize("faces", [1, 15])
+def test_ensemble_rotated_matches_composition_on_card(cuda_device, gray,
+                                                      faces, angle):
+    """Rotated eyes (the landmarks stay upright): the ensemble launches
+    equal the composition bit for bit, with and without landmarks."""
+    det = FaceDetector(device=cuda_device)
+    for landmarks in (True, False):
+        _ensemble_against_composition(det, gray, cuda_device, faces,
+                                      angle=angle, landmarks=landmarks,
+                                      seed=faces)
+
+
+@pytest.mark.parametrize("perturbs", [1, 2, 15, 64, 100, 4096, 4097])
+def test_ensemble_perturbation_counts_on_card(cuda_device, gray, perturbs):
+    """Clusters of 1 to 8 blocks, a group wider than one cluster's 64
+    walkers (walked in rounds), the widest group the kernel takes
+    (pupil_cuda.MAX_PERTURBS) and one beyond it, which takes the
+    composition: equal to the composition bit for bit."""
+    det = FaceDetector(device=cuda_device)
+    _ensemble_against_composition(det, gray, cuda_device, 1, perturbs,
+                                  landmarks=perturbs <= 100, seed=perturbs)
+
+
+@pytest.mark.parametrize("slots,faces", [(2, 1), (4, 3), (32, 15)])
+def test_ensemble_stream_rows_and_pad_slots_on_card(cuda_device, gray,
+                                                    slots, faces):
+    """The stream's layout: one flat draw read through per-group uniform
+    rows, pad slots walked beside the eyed faces, upright and rotated:
+    equal to the composition (which gathers the rows) bit for bit."""
+    det = FaceDetector(device=cuda_device)
+    for angle in (0.0, 0.07):
+        _ensemble_against_composition(det, gray, cuda_device, faces,
+                                      angle=angle, seed=slots,
+                                      stream_slots=slots)
+
+
+def test_post_stage_on_card_is_two_launches(cuda_device, gray):
+    """A post stage on the card is the two ensemble launches: detect adds
+    exactly 2 to pupil_walk_launches, and 1 to the program counter
+    post.fused while a profiler records; every launch of kernel C keeps
+    pupil_walk_kernel in its name."""
+    from pigo_tpu_torch.utils import profiling
+
+    with open(os.path.join(ROOT, "tests", "golden", "sample.json")) as fh:
+        c = json.load(fh)["config"]
+    params = CascadeParams(c["min_size"], c["max_size"], c["shift_factor"],
+                           c["scale_factor"])
+    det = FaceDetector(device=cuda_device)
+    det.detect(gray, 400, 320, params, iou_threshold=c["iou"])
+    profiling.TRACE.reset()
+    before = pupil_cuda.pupil_walk_launches
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        res = det.detect(gray, 400, 320, params, iou_threshold=c["iou"])
+        torch.cuda.synchronize()
+    assert len(res) == 1 and len(res[0].landmarks) == 15
+    assert pupil_cuda.pupil_walk_launches - before == 2
+    counts = profiling.TRACE.as_dict()["counts"]
+    assert counts.get("post.fused") == 1 and counts.get("post.slots") == 1
+    walks = [e.name for e in prof.events()
+             if getattr(e.device_type, "name", "") == "CUDA"
+             and "pupil_walk" in e.name]
+    assert len(walks) == 2 and all("pupil_walk_kernel" in n for n in walks)
+    profiling.TRACE.reset()
+
+
+@pytest.mark.parametrize("perturbs", [63, 100])
+def test_ensemble_vote_orders_zeros_as_the_sort_on_card(cuda_device, gray,
+                                                         perturbs):
+    """Groups whose walkers end at -0.0 and at +0.0 (a forest whose leaves
+    are all zero, anchors and scale at -0.0, each walker's sign set by
+    its uniform): the ensemble's vote picks the zero that torch.sort puts
+    at the median, as the card's sort of more than 32 votes holds the two
+    zeros equal and keeps them in walker order."""
+    from pigo_tpu_torch.convert import pupil_forest_from_numpy
+
+    rng = np.random.default_rng(perturbs)
+    nc, stages, trees, depth, g = 2, 3, 20, 4, 6
+    t = pupil_forest_from_numpy(
+        rng.integers(-128, 128, (nc, stages, trees, 1 << depth, 4),
+                     dtype=np.int8),
+        np.zeros((nc, stages, trees, 1 << depth, 2), np.float32),
+        stages=stages, trees=trees, depth=depth, scale_mult=0.9,
+        device=cuda_device)
+    anchors = [torch.full((g,), -0.0, device=cuda_device) for _ in range(3)]
+    ids = torch.zeros(g, dtype=torch.int32, device=cuda_device)
+    flips = torch.zeros(g, dtype=torch.bool, device=cuda_device)
+    u = torch.from_numpy(rng.random((g, perturbs, 3), dtype=np.float32)
+                         ).to(cuda_device)
+    pix = torch.from_numpy(gray.reshape(-1)).to(cuda_device)
+    kw = dict(nrows=400, ncols=320, dim=320, scale_mult=0.9)
+    r0 = pupil_dense.walker_starts(ids, *anchors, flips, u)[1]
+    assert bool(r0.signbit().any()) and not bool(r0.signbit().all())
+    got = pupil_cuda.pupil_ensemble(
+        t.codes, t.preds, torch.empty((3, g), device=cuda_device), u, pix,
+        col0=0, anchors=anchors, **kw)
+    want = pupil_dense.ensemble(t.codes, t.preds, ids, *anchors, flips, u,
+                                pix, walk=pupil_cuda.pupil_walk, **kw)
+    torch.cuda.synchronize()
+    assert np.array_equal(got.cpu().numpy().view(np.int32),
+                          want.cpu().numpy().view(np.int32))

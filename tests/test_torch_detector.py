@@ -112,6 +112,62 @@ def test_fused_post_matches_jax(sample_gray, det):
     assert torch.equal(eyes_only, got[:, :4])
 
 
+@pytest.mark.parametrize("landmarks", [True, False])
+def test_fused_post_reads_uniform_rows(sample_gray, det, landmarks):
+    """fused_post with per-group uniform rows (the stream's flat draw, a
+    pad slot reading the first face's rows) equals fused_post on the rows
+    gathered first, bit for bit."""
+    rng = np.random.default_rng(9)
+    rows, cols = sample_gray.shape
+    faces = [port_det.Detection(206, 154, 261, 9.0),
+             port_det.Detection(150, 200, 120, 9.0),
+             port_det.Detection(0, 0, 100, 0.0)]  # a pad slot
+    anchors = torch.from_numpy(port_det.eye_anchors(faces)).T.contiguous()
+    cids, flips = det.landmarks.schedule_arrays(3)
+    table = torch.from_numpy(rng.random((60, P, 3), dtype=np.float32))
+    eye_rows = torch.tensor([0, 1, 2, 3, 0, 1])
+    lmk_rows = torch.cat([4 + torch.arange(30), 4 + torch.arange(15)])
+    lmk = det.landmarks.tensors if landmarks else None
+    tail = (torch.from_numpy(cids), torch.from_numpy(flips)) if landmarks \
+        else (None, None)
+    kw = dict(rows=rows, cols=cols, dim=cols)
+    pix = torch.from_numpy(sample_gray.reshape(-1))
+    got = port_det.fused_post(
+        *anchors, pix, det.pupil.tensors, lmk, table, table, *tail,
+        u_rows=(eye_rows, lmk_rows), **kw)
+    want = port_det.fused_post(
+        *anchors, pix, det.pupil.tensors, lmk, table[eye_rows],
+        table[lmk_rows] if landmarks else None, *tail, **kw)
+    assert got.shape == (3, 6 + 45 * landmarks)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_post_stage_staging_is_reused(sample_gray):
+    """`detect` packs its eye anchors and uniforms into one staging
+    buffer, returned to the detector's pool when the stage is collected:
+    repeated calls reuse it, and draw what the generator gives (equal to
+    passing those draws as `uniforms=`); streamed stages in flight hold
+    one buffer each."""
+    det = FaceDetector(device="cpu")
+    rows, cols = sample_gray.shape
+    params = CascadeParams(**CFG)
+    first = det.detect(sample_gray, rows, cols, params, perturbs=P,
+                       generator=torch.Generator().manual_seed(4))
+    [buf] = det._post_staging
+    again = det.detect(sample_gray, rows, cols, params, perturbs=P,
+                       generator=torch.Generator().manual_seed(4))
+    assert det._post_staging == [buf] and _same(first, again)
+    gen = torch.Generator().manual_seed(4)
+    drawn = (torch.rand((2, P, 3), generator=gen).numpy(),
+             torch.rand((15, P, 3), generator=gen).numpy())
+    given = det.detect(sample_gray, rows, cols, params, perturbs=P,
+                       uniforms=drawn)
+    assert _same(first, given)
+    streamed = list(det.detect_stream([sample_gray] * 4, params,
+                                      perturbs=P, seed=4, depth=3))
+    assert _same(streamed[0], first) and len(det._post_staging) == 3
+
+
 FRAMES = {
     # name: (frame function, cascade params, IoU threshold)
     "portrait": (lambda g: g, CFG, 0.1),

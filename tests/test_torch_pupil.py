@@ -353,6 +353,50 @@ def test_kernel_wrapper_rejects_bad_input(plc, flp, sample_gray):
             call(**bad)
 
 
+def test_ensemble_wrapper_checks_before_the_card(flp, sample_gray):
+    """pupil_ensemble (kernel C's ensemble mode, on the card only) checks
+    its arguments first: each malformed one raises its ValueError, and
+    well-formed CPU tensors raise that the mode runs on cuda, with no
+    launch counted."""
+    t = flp.tensors
+    g, p = 6, 15
+    ok = dict(out=torch.zeros((3, 4 + g)), u=torch.rand((g, p, 3)),
+              pixels=torch.from_numpy(sample_gray.reshape(-1)), col0=4,
+              anchors=None, npts=3,
+              casc_id=torch.zeros(g, dtype=torch.int32),
+              flips=torch.zeros(g, dtype=torch.bool), u_rows=None)
+    kw = dict(nrows=400, ncols=320, dim=320, scale_mult=t.scale_mult)
+
+    def call(**over):
+        a = dict(ok, **over)
+        return pupil_cuda.pupil_ensemble(
+            t.codes, t.preds, a.pop("out"), a.pop("u"), a.pop("pixels"),
+            **a, **kw)
+
+    before = pupil_cuda.pupil_walk_launches
+    with pytest.raises(ValueError, match="runs on cuda"):
+        call()
+    with pytest.raises(ValueError, match="runs on cuda"):
+        call(anchors=(torch.ones(g), torch.ones(g), torch.ones(g)),
+             u_rows=torch.zeros(g, dtype=torch.int64), u=torch.rand(1, p, 3))
+    for bad, match in (
+            (dict(u=torch.rand((g, p, 2))), "u must be"),
+            (dict(u=torch.rand((g, 4097, 3))), "u must be"),
+            (dict(u=torch.rand((g - 1, p, 3))), "u must be"),
+            (dict(npts=4), "eye medians"), (dict(col0=3), "eye medians"),
+            (dict(out=torch.zeros((3, 3 + g))), "out must be"),
+            (dict(out=torch.zeros((2, 4 + g))), "out must be"),
+            (dict(flips=torch.zeros(g, dtype=torch.int32)), "flips"),
+            (dict(casc_id=torch.zeros(g + 1, dtype=torch.int32)), "flips"),
+            (dict(u_rows=torch.zeros(g, dtype=torch.int32)), "u_rows"),
+            (dict(anchors=(torch.ones(g), torch.ones(g),
+                           torch.ones(g).double())), "scales0"),
+            (dict(pixels=ok["pixels"][:1000]), "pixels")):
+        with pytest.raises(ValueError, match=match):
+            call(**bad)
+    assert pupil_cuda.pupil_walk_launches == before
+
+
 @pytest.mark.parametrize("bad_id", [-1, 9])
 def test_kernel_wrapper_rejects_cascade_ids_outside_forest(bad_id, flp,
                                                            sample_gray):

@@ -12,9 +12,16 @@ lps cascade), and hold `layout_walk`, a torch walk that reads the way the
 kernel does, bit for bit against the plain walk (ops/pupil_dense.walk),
 upright and rotated, with flips. The kernel itself is held against the
 plain walk on the card (tests/test_torch_cuda.py, chip_smoke.py).
+
+The kernel's ensemble mode votes each group's median by counting, for
+each walker's value, the values that sort before it as unsigned keys;
+`rank_vote`, that vote in torch, is held against pupil_dense.median_vote.
+Every kernel the source defines keeps `pupil_walk_kernel` in its name,
+which the benchmark's roofline of kernel C reads.
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -187,3 +194,60 @@ def test_layout_walk_matches_plain_walk(which, rotated):
     want = pupil_dense.walk(t.codes, t.preds, *starts, pix, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert not torch.equal(want[0], starts[1])  # the walk moved
+
+
+def order_keys(v: torch.Tensor) -> torch.Tensor:
+    """f32 -> int64 keys in torch.sort's order (the kernel's order_key):
+    -0.0 taken as +0.0, then negative floats' bits inverted, others' sign
+    bit set."""
+    v = torch.where(v == 0.0, 0.0, v).contiguous()
+    b = v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(b >= 0x80000000, 0xFFFFFFFF - b, b | 0x80000000)
+
+
+def rank_vote(v: torch.Tensor, perturbs: int) -> torch.Tensor:
+    """The kernel's vote over the last axis of v [G, P]: the value with
+    exactly median_index(P) values before it in key order, ties broken by
+    walker index."""
+    k = order_keys(v)
+    j = torch.arange(perturbs)
+    below = ((k[:, None, :] < k[:, :, None])
+             | ((k[:, None, :] == k[:, :, None])
+                & (j[None, None, :] < j[None, :, None]))).sum(-1)
+    pick = below == pupil_dense.median_index(perturbs)
+    assert bool((pick.sum(-1) == 1).all())
+    return v[pick]
+
+
+@pytest.mark.parametrize("perturbs", [1, 2, 15, 63, 100])
+def test_rank_vote_matches_median_vote(perturbs):
+    """Seeded groups with ties, negatives and zeros: the rank-counting
+    vote selects the value pupil_dense.median_vote's sort does, bit for
+    bit. -0.0 and +0.0 share a key, as in the card's sort (the CPU's
+    orders a mix of them otherwise, so the groups hold +0.0 alone; the
+    card tests hold mixed zeros to the card's sort)."""
+    rng = np.random.default_rng(perturbs)
+    g = 40
+    v = rng.normal(0, 50, (g, perturbs)).astype(np.float32)
+    # many ties and zeros (+ 0.0 turns -0.0 into +0.0)
+    v[: g // 2] = np.round(v[: g // 2] / 16) + np.float32(0.0)
+    v[g // 2: 3 * g // 4, ::3] = 0.0
+    v = torch.from_numpy(v)
+    want = pupil_dense.median_vote(v, v, v, perturbs)[0]
+    assert torch.equal(rank_vote(v, perturbs).view(torch.int32),
+                       want.view(torch.int32))
+    keys = order_keys(torch.tensor([0.0, -0.0, -1.0, 1.0, -2.0]))
+    assert keys[0] == keys[1] and keys[4] < keys[2] < keys[0] < keys[3]
+
+
+def test_every_walk_kernel_keeps_its_name():
+    """Each __global__ kernel of csrc/pupil_walk.cu (the plain walk and
+    the ensemble) is named with pupil_walk_kernel: the benchmark finds
+    kernel C's launches in a device trace by that key."""
+    with open(os.path.join(ROOT, "pigo_tpu_torch", "csrc",
+                           "pupil_walk.cu")) as fh:
+        src = fh.read()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                       r"\s*)?(\w+)\(", src)
+    assert sorted(names) == ["pupil_walk_kernel",
+                             "pupil_walk_kernel_ensemble"]
