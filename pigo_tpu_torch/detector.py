@@ -39,6 +39,13 @@ one flat draw per frame from the frame's generator, gathered by each eyed
 face's rank on the card, so frame i equals `detect` with the generator
 seeded seed + i, bit for bit. A frame that overflows the program's caps
 climbs a ladder (more face slots, more hits, then `detect` on the card).
+On a card the stream's face stage and frame program are each captured
+once per key as a CUDA graph and replayed for every frame (`_Graph`,
+`_StageGraphs`): the same hand-written kernels with the same arguments,
+enqueued by two replays instead of some eighty calls; the host stages the
+frame, the draw and the tail into static device buffers before them. The
+graphs belong to the FaceDetector, so every stream of one detector shares
+them; off the card the stream runs op by op, as `detect` always does.
 
 Rotation: `angle` > 0 runs the face stage rotated (models/face.py) and
 the eye walks rotated at the same angle; the landmark walks stay upright,
@@ -52,6 +59,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -71,7 +79,8 @@ from pigo_tpu_torch.models.pupil import (
     ensemble_medians,
     to_device,
 )
-from pigo_tpu_torch.ops import pupil_cuda, pupil_dense
+from pigo_tpu_torch.ops import cluster_device as cluster_ops
+from pigo_tpu_torch.ops import face_cuda, pupil_cuda, pupil_dense
 from pigo_tpu_torch.ops.cluster import cluster_detections
 from pigo_tpu_torch.ops.cluster_device import MAX_CAPACITY, cluster_device
 from pigo_tpu_torch.utils import profiling
@@ -114,6 +123,18 @@ hit_cap_escalations = 0
 tail_cap_escalations = 0
 detect_fallbacks = 0
 device_frame_waits = 0
+
+# Face-stage keys whose CUDA graphs a FaceDetector keeps on a card (the
+# device stream's, `_stage_graphs`); the least recently used goes, with
+# its frame programs' graphs, so a caller that meets many frame sizes (the
+# serving engine) holds a bounded amount of device memory.
+GRAPH_KEYS = 8
+
+# The kernels' launch counters that a graph's replay adds to (`_Graph`).
+_LAUNCH_COUNTERS = (
+    (face_cuda, "face_cascade_launches"), (face_cuda, "face_prefix_launches"),
+    (face_cuda, "face_finish_launches"), (pupil_cuda, "pupil_walk_launches"),
+    (cluster_ops, "cluster_device_launches"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -497,6 +518,96 @@ class _FrameTicket:
     event: object = None
 
 
+def _launch_counts() -> list[int]:
+    return [getattr(mod, name) for mod, name in _LAUNCH_COUNTERS]
+
+
+def _set_launch_counts(counts) -> None:
+    for (mod, name), n in zip(_LAUNCH_COUNTERS, counts):
+        setattr(mod, name, n)
+
+
+class _Graph:
+    """One call's card work as a CUDA graph (the device stream on a card):
+    captured at the first `run(fn)`, then replayed at each run, which
+    returns fn's outputs as captured, rewritten by the replay. fn reads
+    static buffers that the caller fills before each run; the graph keeps
+    fn, and with it every tensor fn reads, alive. Each replay adds the
+    kernel launches it holds to the kernels' launch counters, so that
+    they count what ran; the capture and its warm-up run add none."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.graph = None
+        self.fn = None
+        self.out = None
+        self.launches: list[int] = []
+
+    def run(self, fn):
+        if self.graph is None:
+            self._capture(fn)
+        self.graph.replay()
+        _set_launch_counts(n + k for n, k in zip(_launch_counts(),
+                                                 self.launches))
+        return self.out
+
+    def _capture(self, fn) -> None:
+        """fn once on a side stream, as torch.cuda.graphs asks (its
+        one-time set-up, such as the kernels' cudaFuncSetAttribute, so
+        runs outside the capture), then its capture, thread-local so that
+        another thread's CUDA calls (the serving engine's) cannot break
+        it. torch.cuda.graph synchronises the device before it captures."""
+        before = _launch_counts()
+        try:
+            with torch.cuda.device(self.device):
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(side):
+                    fn()
+                torch.cuda.current_stream(self.device).wait_stream(side)
+                warm = _launch_counts()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, stream=side,
+                                      capture_error_mode="thread_local"):
+                    out = fn()
+                self.launches = [b - a for a, b in zip(warm,
+                                                       _launch_counts())]
+        finally:
+            _set_launch_counts(before)
+        self.graph, self.fn, self.out = graph, fn, out
+        profiling.count("stream.graph_captures")
+
+
+class _StageGraphs:
+    """The CUDA graphs of one face-stage key (`FaceDetector._stage_graphs`):
+    the face stage's, over the static frame buffer `frames` (the graph
+    protocol of FaceCascade._dispatch), and a frame program's per program
+    key, each with its static uniforms and host tail buffers (`program`).
+    Every frame of the key shares them, and stream order alone keeps that
+    safe at any depth: frame i's download of the program's output is
+    enqueued on the stream before frame i+1's uploads and replays."""
+
+    def __init__(self, shape: tuple, device: torch.device):
+        self.frames = torch.empty(shape, dtype=torch.uint8, device=device)
+        self.face = _Graph(device)
+        self.programs: dict[tuple, tuple] = {}
+
+    def run(self, fn):
+        return self.face.run(fn)
+
+    def program(self, key: tuple, n_uniforms: int, tail_cap: int | None):
+        """(graph, uniforms, tail or None) of frame-program key `key`."""
+        hit = self.programs.get(key)
+        if hit is None:
+            dev = self.frames.device
+            hit = self.programs[key] = (
+                _Graph(dev),
+                torch.empty(n_uniforms, dtype=torch.float32, device=dev),
+                None if tail_cap is None else torch.empty(
+                    1 + 4 * tail_cap, dtype=torch.float32, device=dev))
+        return hit
+
+
 class DeviceStream:
     """The device-resident stream's frames in flight, fed one frame at a
     time (detect_stream_device, the serving engine). It owns `depth`
@@ -611,6 +722,9 @@ class FaceDetector:
         self._recent_face_counts: collections.deque = collections.deque(
             maxlen=8)
         self._lmk_tables: dict[int, tuple] = {}
+        # the device stream's CUDA graphs by face-stage key, least recently
+        # used first (_stage_graphs)
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
         # the post stage's host staging buffers not in flight (_staging)
         self._post_staging: list[torch.Tensor] = []
         if face is not None and host_tail and not face.host_tail:
@@ -646,15 +760,20 @@ class FaceDetector:
             pixels, dim = destride(pixels, rows, cols, dim), cols
         return FaceCascade._as_frames(pixels, rows, dim), cols
 
+    @staticmethod
+    def _cfg(params: CascadeParams) -> dict:
+        return dict(min_size=params.min_size, max_size=params.max_size,
+                    shift_factor=params.shift_factor,
+                    scale_factor=params.scale_factor)
+
     def _dispatch_faces(self, frames, slot: _Slot, params: CascadeParams,
-                        angle: float, download: bool = True):
+                        angle: float, download: bool = True, graph=None):
         """Async face stage of `_frames`'s (frames, cols); without download
-        it stops at the packed hit list on the device."""
+        it stops at the packed hit list on the device, with `graph` (from
+        `_stage_graphs`) as a replay of its CUDA graph."""
         frames, cols = frames
-        return self.face._dispatch(frames, slot, dict(
-            min_size=params.min_size, max_size=params.max_size,
-            shift_factor=params.shift_factor,
-            scale_factor=params.scale_factor), angle, cols, download)
+        return self.face._dispatch(frames, slot, self._cfg(params), angle,
+                                   cols, download, graph=graph)
 
     def _faces(self, ticket, iou_threshold: float) -> list[Detection]:
         """Blocking half of the face stage: hits -> clustered detections."""
@@ -894,6 +1013,29 @@ class FaceDetector:
         while len(stream):
             yield stream.collect_oldest()
 
+    def _stage_graphs(self, frames, params: CascadeParams,
+                      angle: float) -> _StageGraphs:
+        """The CUDA graphs of the face-stage key of `_frames`'s (frames,
+        cols): the plan's key (geometry, angle, routing) and the row
+        stride. A new key drops the least recently used beyond GRAPH_KEYS;
+        a graph dropped while a replay of it is in flight is freed when
+        that replay completes (cudaGraphExecDestroy), and its buffers go
+        back to the stream's allocator, whose next user is enqueued after
+        that replay."""
+        frames, cols = frames
+        _, rows, dim = frames.shape
+        key = (self.face._plan_key(rows, cols, **self._cfg(params),
+                                   angle_idx=angle_index(angle)), dim)
+        hit = self._graphs.get(key)
+        if hit is None:
+            hit = self._graphs[key] = _StageGraphs((1, rows, dim),
+                                                   self.device)
+            while len(self._graphs) > GRAPH_KEYS:
+                self._graphs.popitem(last=False)
+        else:
+            self._graphs.move_to_end(key)
+        return hit
+
     def _device_tables(self, slots: int):
         """The landmark schedule's cascade ids and flips over `slots` face
         slots (or faces), on the device, uploaded once per count."""
@@ -910,7 +1052,10 @@ class FaceDetector:
                                caps: tuple | None = None) -> _FrameTicket:
         """Async half: the frame's upload, face stage, jitter draw and
         upload, frame program and the download of its result, enqueued
-        without waiting for the device."""
+        without waiting for the device. On a card the face stage and the
+        frame program are replays of their CUDA graphs (`_stage_graphs`):
+        the same kernels with the same arguments, enqueued by two calls
+        instead of one per op; elsewhere they run op by op."""
         with profiling.span("stream.dispatch"):
             params, angle = args[:2]
             if caps is None:
@@ -924,48 +1069,70 @@ class FaceDetector:
             ticket = _FrameTicket(
                 frame=frame, args=args, seed=seed, caps=tuple(caps),
                 slot=slot, npts=len(self.landmarks.point_schedule))
-            face = self._dispatch_faces(
-                self._frames(frame, frame.shape[-2], frame.shape[-1], angle),
-                slot.face, params, angle, download=False)
+            frames = self._frames(frame, frame.shape[-2], frame.shape[-1],
+                                  angle)
+            graphs = (self._stage_graphs(frames, params, angle)
+                      if self.device.type == "cuda" else None)
+            face = self._dispatch_faces(frames, slot.face, params, angle,
+                                        download=False, graph=graphs)
             if face.q is None:  # frame smaller than the smallest face
                 return ticket
             with profiling.span("post.dispatch"):
-                self._dispatch_frame_post(ticket, face)
+                self._dispatch_frame_post(ticket, face, graphs)
             return ticket
 
-    def _dispatch_frame_post(self, ticket: _FrameTicket, face) -> None:
+    def _dispatch_frame_post(self, ticket: _FrameTicket, face,
+                             graphs: _StageGraphs | None = None) -> None:
         """The frame's jitter draw and upload, its host tail's staging,
         the frame program over the face stage's packed list `face` and the
-        download of its result, into `ticket`."""
+        download of its result, into `ticket`; with `graphs`, the program
+        as a replay of the graph of its key (caps, perturbs, IoU
+        threshold, angle, points, host tail), over static uniforms and
+        tail buffers."""
         _, angle, iou_threshold, perturbs = ticket.args
         dense_cap, tail_cap, s = ticket.caps
         npts, slot = ticket.npts, ticket.slot
         profiling.count("post.slots", s)
+        profiling.count("stream.dispatches")
         n_uniforms = (2 * s + s * npts) * perturbs * 3
         u_host, out_host, tail_host = slot.buffers(
             n_uniforms, 2 + 6 * s + 3 * (2 * s + s * npts), tail_cap)
         torch.rand(n_uniforms,
                    generator=torch.Generator().manual_seed(ticket.seed),
                    out=u_host)
-        tail = None
-        if face.tail is not None:  # the host tail's hits, then zero rows
+        host_tail = face.tail is not None
+        if host_tail:  # the host tail's hits, then zero rows
             hits = face.tail[0]
             t = tail_host.numpy()
             t[0] = hits.shape[0]
             t[1:] = 0.0
             t[1:1 + 4 * min(hits.shape[0], tail_cap)] = \
                 hits[:tail_cap].reshape(-1)
-            tail = tail_host.to(self.device, non_blocking=True)
         cids, flips = self._device_tables(s)
         _, rows, dim = face.frames.shape
-        out = device_detect(
-            face.packed[0], face.coords, face.frames[0].reshape(-1),
-            self.pupil.tensors, self.landmarks.tensors,
-            u_host.to(self.device, non_blocking=True), cids, flips,
-            hit_cap=face.cap, dense_cap=dense_cap, max_faces=s,
-            iou_threshold=iou_threshold, perturbs=perturbs, rows=rows,
-            cols=face.cols, dim=dim, angle=angle, tail=tail,
-            tail_cap=tail_cap)
+
+        def program(u, tail):
+            return device_detect(
+                face.packed[0], face.coords, face.frames[0].reshape(-1),
+                self.pupil.tensors, self.landmarks.tensors, u, cids, flips,
+                hit_cap=face.cap, dense_cap=dense_cap, max_faces=s,
+                iou_threshold=iou_threshold, perturbs=perturbs, rows=rows,
+                cols=face.cols, dim=dim, angle=angle, tail=tail,
+                tail_cap=tail_cap)
+
+        if graphs is None:
+            tail = (tail_host.to(self.device, non_blocking=True)
+                    if host_tail else None)
+            out = program(u_host.to(self.device, non_blocking=True), tail)
+        else:
+            graph, u, tail = graphs.program(
+                (ticket.caps, perturbs, iou_threshold, angle, npts,
+                 host_tail), n_uniforms, tail_cap if host_tail else None)
+            if host_tail:
+                tail.copy_(tail_host, non_blocking=True)
+            u.copy_(u_host, non_blocking=True)
+            out = graph.run(functools.partial(program, u, tail))
+            profiling.count("stream.graph_replays")
         if self.device.type == "cuda":
             ticket.out = out_host.copy_(out, non_blocking=True)
             ticket.event = torch.cuda.Event()

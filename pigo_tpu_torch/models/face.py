@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -248,14 +249,20 @@ class FaceCascade:
         """(routed plan, device base, device scale) of `_plan_entry`."""
         return self._plan_entry(*geometry, angle_idx=angle_idx)[:3]
 
+    def _plan_key(self, rows, cols, min_size, max_size, shift_factor,
+                  scale_factor, angle_idx=0) -> tuple:
+        """The plan cache's key: geometry, angle and routing."""
+        return (rows, cols, min_size, max_size, shift_factor, scale_factor,
+                angle_idx, self.prefix, self.tree_cap, self.host_tail)
+
     def _plan_entry(self, rows, cols, min_size, max_size, shift_factor,
                     scale_factor, angle_idx=0):
         """(routed plan, device base, device scale, device coords), built
         and uploaded once per geometry, angle and routing. coords is f32
         [W, 3], every window's (row, col, scale), from which the device
         detector decodes the packed hit list on the card."""
-        key = (rows, cols, min_size, max_size, shift_factor, scale_factor,
-               angle_idx, self.prefix, self.tree_cap, self.host_tail)
+        key = self._plan_key(rows, cols, min_size, max_size, shift_factor,
+                             scale_factor, angle_idx)
         hit = self._plans.get(key)
         if hit is None:
             plan = build_window_plan(rows, cols, min_size, max_size,
@@ -296,19 +303,34 @@ class FaceCascade:
                                   q[:, lo:hi], **kw)
         return q
 
+    def _card_stage(self, frames, routed, base, scale, angle_idx, cols):
+        """The face stage's card work on frames already on the card: (the
+        scores f32 [B, W], the packed hit list f32 [B, 1 + 2*cap]). A
+        dispatch runs it, or a CUDA graph captures it (`_dispatch`'s
+        `graph`): the same ops either way."""
+        q = self._scores(frames, routed, base, scale, angle_idx, cols)
+        return q, compact_hits(q, self.HIT_CAPACITY)
+
     # ------------------------------------------------- dispatch / collect
 
-    def _upload(self, frames, staging: torch.Tensor) -> torch.Tensor:
-        """uint8 [B, rows, dim] frames on the device. Host frames go
+    def _upload(self, frames, staging: torch.Tensor,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+        """uint8 [B, rows, dim] frames on the device, copied into `out`
+        (a device buffer of that shape) when given. Host frames go
         through the (pinned) staging buffer with a non-blocking copy."""
         if isinstance(frames, torch.Tensor):
             if frames.device == self.device:
-                return frames.to(torch.uint8).contiguous()
+                frames = frames.to(torch.uint8)
+                return frames.contiguous() if out is None else \
+                    out.copy_(frames)
             frames = frames.cpu().numpy()
         if self.device.type == "cpu":
-            return torch.from_numpy(np.ascontiguousarray(frames, np.uint8))
+            host = torch.from_numpy(np.ascontiguousarray(frames, np.uint8))
+            return host if out is None else out.copy_(host)
         staging.numpy()[...] = frames
-        return staging.to(self.device, non_blocking=True)
+        if out is None:
+            return staging.to(self.device, non_blocking=True)
+        return out.copy_(staging, non_blocking=True)
 
     @staticmethod
     def _host_frames(frames) -> np.ndarray:
@@ -333,7 +355,7 @@ class FaceCascade:
 
     def _dispatch(self, frames, slot: _Slot, cfg: dict, angle: float = 0.0,
                   cols: int | None = None, download: bool = True,
-                  host_frames=None) -> _Ticket:
+                  host_frames=None, graph=None) -> _Ticket:
         """Async half: the upload, the cascade launches for all frames and
         scales, the hit compaction and the download of the packed hit lists
         are all enqueued without waiting for the device; then the host
@@ -344,7 +366,11 @@ class FaceCascade:
         at `compact_hits`: the ticket's `packed` is the device's f32
         [B, 1 + 2*cap] list, with the plan's device `coords` beside it,
         and nothing is waited for or copied back
-        (FaceDetector.detect_stream_device)."""
+        (FaceDetector.detect_stream_device). `graph`, given (that stream
+        on a card), is the key's CUDA graph of `_card_stage`: the upload
+        fills its static frame buffer `graph.frames` and `graph.run(fn)`
+        replays fn's graph (captured at its first run), which gives fn's
+        outputs as captured."""
         with profiling.span("face.dispatch"):
             b, rows, dim = frames.shape
             cols = dim if cols is None else cols
@@ -356,10 +382,11 @@ class FaceCascade:
             if routed.windows.num_windows == 0:  # smaller than min face
                 return ticket
             staging, packed_host = slot.buffers(b, rows, dim, cap)
-            ticket.frames = self._upload(frames, staging)
-            ticket.q = self._scores(ticket.frames, routed, base, scale,
-                                    angle_index(angle), cols)
-            packed = compact_hits(ticket.q, cap)
+            ticket.frames = self._upload(
+                frames, staging, None if graph is None else graph.frames)
+            card = functools.partial(self._card_stage, ticket.frames, routed,
+                                     base, scale, angle_index(angle), cols)
+            ticket.q, packed = card() if graph is None else graph.run(card)
             if not download:
                 ticket.packed, ticket.coords = packed, coords
             else:

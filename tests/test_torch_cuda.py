@@ -541,6 +541,150 @@ def test_detect_stream_device_matches_detect_on_card(cuda_device, gray):
         assert len(res) == 1 and len(res[0].landmarks) == 15
 
 
+def _tiled(gray, faces: int, shift: int) -> np.ndarray:
+    """A 1200x1280 frame of 3 x 4 sample tiles (one face each), rolled
+    `shift` columns, with every tile past the first `faces` blanked."""
+    frame = np.roll(np.tile(gray, (3, 4)), shift, axis=1)
+    for k in range(faces, 12):
+        r, c = divmod(k, 4)
+        frame[400 * r:400 * (r + 1), 320 * c:320 * (c + 1)] = 0
+    return frame
+
+
+def _graph_counts(run):
+    """run() under the profiler: (its value, the program's stream.*
+    counters, the device events' names)."""
+    from pigo_tpu_torch.utils import profiling
+
+    profiling.TRACE.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = run()
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in profiling.TRACE.as_dict()["counts"].items()
+              if k.startswith("stream.")}
+    profiling.TRACE.reset()
+    names = {e.name for e in prof.events()
+             if getattr(e.device_type, "name", "") == "CUDA"}
+    return got, counts, names
+
+
+def _same_as_detect(det, frames, got, params, iou, seed):
+    assert len(got) == len(frames)
+    for i, (frame, res) in enumerate(zip(frames, got)):
+        want = det.detect(frame, *frame.shape, params, iou_threshold=iou,
+                          generator=torch.Generator().manual_seed(seed + i))
+        assert [r.to_json_dict() for r in res] == \
+            [r.to_json_dict() for r in want], i
+        assert [[p.scale for p in r.eyes + r.landmarks] + [r.face.q]
+                for r in res] == [[p.scale for p in r.eyes + r.landmarks]
+                                  + [r.face.q] for r in want], i
+
+
+@pytest.mark.parametrize("depth", [1, 4])
+def test_graphed_stream_equals_detect_on_card(cuda_device, gray, depth,
+                                              monkeypatch):
+    """On the card each frame of detect_stream_device is one replay of
+    the face stage's CUDA graph and one of its frame program's, bit-equal
+    to detect(frame, seed + i): frames of 8 and 12 faces move the face
+    slots between 16 and 32, and a frame past the dense hit cap climbs
+    the ladder into a second program key of those slots' caps. Each
+    replay counts the launches it holds: one face_cascade, one
+    cluster_device and two pupil_walk a dispatch."""
+    from pigo_tpu_torch import detector as port_det
+    from pigo_tpu_torch.ops import cluster_device as cd
+
+    params, iou = CascadeParams(20, 1000, 0.2, 1.1), 0.1
+    frames = [_tiled(gray, n, 2 * i)
+              for i, n in enumerate((8, 8, 12, 12, 8, 12, 12, 12))]
+    det = FaceDetector()
+    hits = [det.face.sparse_hits(f, *f.shape, min_size=20, max_size=1000,
+                                 shift_factor=0.2, scale_factor=1.1
+                                 ).shape[0] for f in frames]
+    cap = max(hits) - 1  # the frames with the most hits overflow it
+    monkeypatch.setattr(port_det, "DEV_DENSE_CAP", cap)
+    det = FaceDetector(det.face, det.pupil, det.landmarks)
+    port_det.hit_cap_escalations = port_det.device_frame_waits = 0
+    port_det.face_slot_escalations = port_det.detect_fallbacks = 0
+    before = (face_cuda.face_cascade_launches, cd.cluster_device_launches,
+              pupil_cuda.pupil_walk_launches)
+    got, counts, _ = _graph_counts(lambda: list(det.detect_stream_device(
+        frames, params, iou_threshold=iou, seed=11, depth=depth)))
+    launches = tuple(a - b for a, b in zip(
+        (face_cuda.face_cascade_launches, cd.cluster_device_launches,
+         pupil_cuda.pupil_walk_launches), before))
+    _same_as_detect(det, frames, got, params, iou, 11)
+    dispatches = port_det.device_frame_waits
+    assert port_det.detect_fallbacks == 0
+    assert port_det.hit_cap_escalations >= 1
+    assert dispatches == len(frames) + port_det.hit_cap_escalations \
+        + port_det.face_slot_escalations
+    assert launches == (dispatches, dispatches, 2 * dispatches)
+    assert counts["stream.dispatches"] == dispatches
+    assert counts["stream.graph_replays"] == dispatches
+    [stage] = det._graphs.values()
+    keys = {caps for caps, *_ in stage.programs}
+    assert counts["stream.graph_captures"] == 1 + len(keys)
+    assert {16, 32} <= {s for _, _, s in keys}, keys
+    dense = {d for d, _, _ in keys}
+    assert cap in dense and port_det.DEV_CAPS_ESCALATED[0] in dense, keys
+
+
+def test_graph_capture_under_the_profiler_on_card(cuda_device, gray):
+    """A capture made while torch.profiler records CPU and CUDA works,
+    and replays, with no capture, still show face_cascade_kernel,
+    pupil_walk_kernel_ensemble and cluster_kernel among the profile's
+    device events, which the rooflines read."""
+    params, iou = CascadeParams(20, 1000, 0.2, 1.1), 0.1
+    frames = [np.roll(gray, i, axis=1) for i in range(3)]
+    det = FaceDetector()
+    for k, want_captures in ((0, True), (1, False)):
+        got, counts, names = _graph_counts(lambda: list(
+            det.detect_stream_device(frames, params, iou_threshold=iou,
+                                     seed=5, depth=2)))
+        _same_as_detect(det, frames, got, params, iou, 5)
+        assert counts["stream.graph_replays"] == \
+            counts["stream.dispatches"] >= len(frames), k
+        assert ("stream.graph_captures" in counts) == want_captures, counts
+        for kernel in ("face_cascade_kernel", "pupil_walk_kernel_ensemble",
+                       "cluster_kernel"):
+            assert any(kernel in n for n in names), (k, kernel, names)
+
+
+def test_graph_cache_evicts_least_recently_used_on_card(cuda_device, gray,
+                                                        monkeypatch):
+    """With room for two face-stage keys, a third frame size drops the
+    least recently used key with its frame programs' graphs; a key used
+    again is captured anew, and every answer still equals detect."""
+    import gc
+    import weakref
+
+    from pigo_tpu_torch import detector as port_det
+
+    monkeypatch.setattr(port_det, "GRAPH_KEYS", 2)
+    params, iou = CascadeParams(20, 1000, 0.2, 1.1), 0.1
+    det = FaceDetector()
+    sizes = [(400, 320), (400, 336), (416, 320), (400, 320)]
+    refs = []
+    for k, (rows, cols) in enumerate(sizes):
+        frames = [np.ascontiguousarray(np.pad(
+            np.roll(gray, i, axis=1), ((0, rows - 400), (0, cols - 320))))
+            for i in range(2)]
+        got = list(det.detect_stream_device(frames, params,
+                                            iou_threshold=iou, seed=k,
+                                            depth=2))
+        _same_as_detect(det, frames, got, params, iou, k)
+        stage = det._graphs[next(reversed(det._graphs))]
+        assert stage.frames.shape == (1, rows, cols) and stage.programs
+        refs.append([weakref.ref(stage)] + [weakref.ref(g) for g, *_ in
+                                            stage.programs.values()])
+        assert len(det._graphs) == min(k + 1, 2)
+    gc.collect()
+    assert [any(r() is not None for r in rs) for rs in refs] == \
+        [False, False, True, True]
+
+
 def test_host_tail_on_card_equals_all_card(cuda_device, gray):
     """FaceCascade(host_tail=True) on the card equals the all-card
     cascade on sample frames (stream, batch, upright and at 0.07) with one

@@ -260,6 +260,42 @@ def test_stream_device_equals_detect_rotated(depth, sample_gray, det):
         "stream.dispatch": 2, "stream.collect": 2, "stream.wait": 2}
 
 
+def test_device_stream_runs_op_by_op_on_cpu(sample_gray):
+    """Off the card DeviceStream runs each frame program op by op: under
+    a profiler it counts every frame program it dispatches, the ladder's
+    re-dispatches included, in stream.dispatches, and no CUDA graph capture
+    or replay; it keeps no graph, and its answers equal `detect`'s."""
+    frames = [np.concatenate([np.roll(sample_gray, 3 * i, axis=1),
+                              sample_gray], axis=1) for i in range(2)]
+    det = FaceDetector(device="cpu", device_caps=(4096, 0, 1))
+    params, iou = TWO
+    stream = port_det.DeviceStream(det, (params, 0.0, iou, P), depth=2)
+    _reset_counts()
+    profiling.TRACE.reset()
+    got = []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for i, frame in enumerate(frames):
+            stream.submit(frame, 6 + i)
+            if stream.full:
+                got.append(stream.collect_oldest())
+        while len(stream):
+            got.append(stream.collect_oldest())
+    counts = profiling.TRACE.as_dict()["counts"]
+    profiling.TRACE.reset()
+    assert _counts() == (2, 0, 0, 4)  # each frame climbs from one slot
+    assert counts["stream.dispatches"] == 4
+    assert "stream.graph_replays" not in counts
+    assert "stream.graph_captures" not in counts
+    assert not det._graphs
+    for i, (frame, res) in enumerate(zip(frames, got)):
+        want = det.detect(frame, frame.shape[0], frame.shape[1], params,
+                          iou_threshold=iou, perturbs=P,
+                          generator=torch.Generator().manual_seed(6 + i))
+        assert [len(r) for r in (res, want)] == [2, 2]
+        assert _same(res, want), i
+
+
 @pytest.mark.parametrize("rung", ["face_slots", "hit_caps", "detect"])
 def test_stream_device_ladder(rung, sample_gray, monkeypatch):
     """Each rung, forced with small caps: the results still equal
