@@ -127,6 +127,7 @@ Any failed check exits non-zero before the status line.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import io
@@ -248,38 +249,31 @@ def golden_uniforms(tag: str, n: int, perturbs: int = 63) -> np.ndarray:
     return rng.random((n, perturbs, 3), dtype=np.float32)
 
 
+FACE_KERNELS = ("face_cascade", "face_prefix", "face_finish")
+LADDER = ("face_slot_escalations", "hit_cap_escalations",
+          "tail_cap_escalations", "detect_fallbacks", "device_frame_waits")
+
+
+def tally():
+    """The launch counts of every kernel (pigo_tpu_torch.utils.build)."""
+    from pigo_tpu_torch.utils.build import LAUNCHES
+
+    return LAUNCHES
+
+
 def face_counts():
     """The three face kernels' launch counts."""
-    from pigo_tpu_torch.ops import face_cuda
-
-    return (face_cuda.face_cascade_launches, face_cuda.face_prefix_launches,
-            face_cuda.face_finish_launches)
-
-
-def reset_face_counts() -> None:
-    from pigo_tpu_torch.ops import face_cuda
-
-    face_cuda.face_cascade_launches = face_cuda.face_prefix_launches = 0
-    face_cuda.face_finish_launches = 0
+    return tuple(tally()[k] for k in FACE_KERNELS)
 
 
 def kernel_counts() -> dict:
     """Every kernel's launch count, by name."""
-    from pigo_tpu_torch.ops import cluster_device, face_cuda, pupil_cuda
-
-    return {"face_cascade": face_cuda.face_cascade_launches,
-            "face_prefix": face_cuda.face_prefix_launches,
-            "face_finish": face_cuda.face_finish_launches,
-            "pupil_walk": pupil_cuda.pupil_walk_launches,
-            "cluster_device": cluster_device.cluster_device_launches}
+    return {k: tally()[k]
+            for k in (*FACE_KERNELS, "pupil_walk", "cluster_device")}
 
 
 def reset_kernel_counts() -> None:
-    from pigo_tpu_torch.ops import cluster_device, pupil_cuda
-
-    reset_face_counts()
-    pupil_cuda.pupil_walk_launches = 0
-    cluster_device.cluster_device_launches = 0
+    tally().clear()
 
 
 def phase_build() -> None:
@@ -369,11 +363,11 @@ def phase_kernel(gray, hd, forest, card) -> dict:
              bitwise_equal=equal, max_abs_err=err)
         check(equal, f"{kernel} != {what} at {name}")
 
-    def launched(counter, fn):
-        before = getattr(face_cuda, counter)
+    def launched(kernel, fn):
+        before = tally()[kernel]
         out = fn()
-        n = getattr(face_cuda, counter) - before
-        check(n == 1, f"{n} {counter} for one call")
+        n = tally()[kernel] - before
+        check(n == 1, f"{n} {kernel} launches for one call")
         return out
 
     def plain_with_work(fn):
@@ -406,7 +400,7 @@ def phase_kernel(gray, hd, forest, card) -> dict:
         ft = torch.from_numpy(frames).to(dev)
         full = {}
         for a, t_limit in ((0, t_num), (0, 32), (rot, t_num)):
-            qk = launched("face_cascade_launches",
+            qk = launched("face_cascade",
                           lambda: face_cuda.face_cascade(
                               ft, base, scale, *tables, t_limit, angle_idx=a))
             compare("face_cascade", name, qk, face_dense.classify_windows(
@@ -416,7 +410,7 @@ def phase_kernel(gray, hd, forest, card) -> dict:
                 full[a] = qk
             else:
                 capped = qk
-        fin = launched("face_finish_launches",
+        fin = launched("face_finish",
                        lambda: face_cuda.face_finish(
                            ft, base, scale, *tables, capped.clone()))
         compare("face_finish", name, fin, full[0],
@@ -425,13 +419,13 @@ def phase_kernel(gray, hd, forest, card) -> dict:
         [seg] = [sg for sg in routed.segments if sg.prefix]
         pb, ps = base[seg.lo:seg.hi], scale[seg.lo:seg.hi]
         for a in (0, rot):
-            qb = launched("face_prefix_launches",
+            qb = launched("face_prefix",
                           lambda: face_cuda.face_prefix(
                               ft, pb, ps, *tables, seg.t_limit, angle_idx=a))
             compare("face_prefix", name, qb, face_dense.classify_windows(
                 ft, pb, ps, *tables, seg.t_limit, angle_idx=a),
                 f"classify_windows, t_limit {seg.t_limit}, angle_idx {a}")
-            fin = launched("face_finish_launches",
+            fin = launched("face_finish",
                            lambda: face_cuda.face_finish(
                                ft, pb, ps, *tables, qb.clone(), angle_idx=a))
             compare("face_finish", name, fin, face_dense.finish_marked(
@@ -452,7 +446,7 @@ def phase_kernel(gray, hd, forest, card) -> dict:
                                     ("random_d8_t40", rand8, (1, 23))):
             for a in (0, rot):
                 for t_limit in limits:
-                    qb = launched("face_prefix_launches",
+                    qb = launched("face_prefix",
                                   lambda: face_cuda.face_prefix(
                                       ft, pb, ps, *tabs, t_limit,
                                       angle_idx=a))
@@ -474,7 +468,7 @@ def phase_kernel(gray, hd, forest, card) -> dict:
             for a in (0, rot):
                 for t_limit in limits:
                     what = f"{label}, t_limit {t_limit}, angle_idx {a}"
-                    qk = launched("face_cascade_launches",
+                    qk = launched("face_cascade",
                                   lambda: face_cuda.face_cascade(
                                       ft, base, scale, *tabs, t_limit,
                                       angle_idx=a))
@@ -484,7 +478,7 @@ def phase_kernel(gray, hd, forest, card) -> dict:
                                 angle_idx=a), f"classify_windows, {what}")
                     if t_limit == tabs[2].shape[0]:
                         continue
-                    fin = launched("face_finish_launches",
+                    fin = launched("face_finish",
                                    lambda: face_cuda.face_finish(
                                        ft, base, scale, *tabs, qk.clone(),
                                        angle_idx=a))
@@ -628,9 +622,9 @@ def phase_pupil_kernel(frames, det, card) -> dict:
     stats = {"max_abs_err": 0.0, "shapes": {}}
 
     def compare(t, walkers, pix, kw, what):
-        before = pupil_cuda.pupil_walk_launches
+        before = tally()["pupil_walk"]
         got = pupil_cuda.pupil_walk(t.codes, t.preds, *walkers, pix, **kw)
-        launches = pupil_cuda.pupil_walk_launches - before
+        launches = tally()["pupil_walk"] - before
         want = pupil_dense.walk(t.codes, t.preds, *walkers, pix, **kw)
         torch.cuda.synchronize()
         equal = all(torch.equal(a, b) for a, b in zip(got, want))
@@ -659,9 +653,9 @@ def phase_pupil_kernel(frames, det, card) -> dict:
                 torch.from_numpy(cids).to(dev),
                 torch.from_numpy(flips).to(dev))
         kw = dict(rows=rows, cols=cols, dim=cols)
-        before = pupil_cuda.pupil_walk_launches
+        before = tally()["pupil_walk"]
         got = fused_post(*args, **kw)
-        launches = pupil_cuda.pupil_walk_launches - before
+        launches = tally()["pupil_walk"] - before
         want = composed_post(*args, **kw)
         torch.cuda.synchronize()
         equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
@@ -817,7 +811,7 @@ def phase_main_path(gray, hd, goldens, card) -> dict:
     launches = [0, 0, 0]
     summary = {}
     for mode, fc in cascades.items():
-        reset_face_counts()
+        reset_kernel_counts()
         calls = 0
         for tag, golden in goldens.items():
             cfg = _cfg(golden)
@@ -895,7 +889,7 @@ def phase_main_path(gray, hd, goldens, card) -> dict:
                 ("hd1080", hdf, HD, HD_DEPTH, 3 if key == "default" else 2)):
             stats = PipelineStats()
             per_frame = []
-            reset_face_counts()
+            reset_kernel_counts()
             for _ in range(reps):
                 t0 = time.perf_counter()
                 with stats.stage("stream_hits", items=len(fr)):
@@ -998,7 +992,6 @@ def phase_detector(gray, hd, golden, det, card) -> dict:
     from pigo_tpu_torch import FaceDetector
     from pigo_tpu_torch.detector import (MIN_EYE_FACE_SCALE, PERTURBS,
                                          Q_THRESH, Detection, FaceResult)
-    from pigo_tpu_torch.ops import face_cuda, pupil_cuda
     from pigo_tpu_torch.ops.cluster import cluster_detections
     from pigo_tpu_torch.utils.profiling import PipelineStats
 
@@ -1014,23 +1007,21 @@ def phase_detector(gray, hd, golden, det, card) -> dict:
                             for i in quals])
 
     # ---- the main path, counted: detect, then both streams
-    face_cuda.face_cascade_launches = 0
-    pupil_cuda.pupil_walk_launches = 0
+    count = tally()
+    count.clear()
     res = det.detect(gray, rows, cols, params, iou_threshold=iou,
                      uniforms=(u_eyes, u_lmk))
-    single = (face_cuda.face_cascade_launches, pupil_cuda.pupil_walk_launches)
+    single = (count["face_cascade"], count["pupil_walk"])
     streamed = {}
     stream_launches = {}
     for name, frames, prm, _ in streams:
-        before = (face_cuda.face_cascade_launches,
-                  pupil_cuda.pupil_walk_launches)
+        before = (count["face_cascade"], count["pupil_walk"])
         streamed[name] = list(det.detect_stream(
             frames, prm, iou_threshold=iou, seed=SEED, depth=DET_DEPTH))
-        stream_launches[name] = (
-            face_cuda.face_cascade_launches - before[0],
-            pupil_cuda.pupil_walk_launches - before[1])
-    launches = {"face_cascade": face_cuda.face_cascade_launches,
-                "pupil_walk": pupil_cuda.pupil_walk_launches}
+        stream_launches[name] = (count["face_cascade"] - before[0],
+                                 count["pupil_walk"] - before[1])
+    launches = {"face_cascade": count["face_cascade"],
+                "pupil_walk": count["pupil_walk"]}
 
     # ---- checks: golden, CPU parity, stream parity, launch counts
     check(single == (1, 2), f"detect made {single} (face_cascade, "
@@ -1170,19 +1161,9 @@ def sync_free_dispatch(det):
         del det._dispatch_frame_device
 
 
-def ladder_counts():
-    from pigo_tpu_torch import detector
-
-    return {k: getattr(detector, k) for k in (
-        "face_slot_escalations", "hit_cap_escalations", "detect_fallbacks",
-        "device_frame_waits")}
-
-
-def reset_ladder_counts() -> None:
-    from pigo_tpu_torch import detector
-
-    detector.face_slot_escalations = detector.hit_cap_escalations = 0
-    detector.detect_fallbacks = detector.device_frame_waits = 0
+def ladder_counts(det) -> dict:
+    """det's ladder (FaceDetector.ladder), every rung by name."""
+    return {k: det.ladder[k] for k in LADDER}
 
 
 def phase_cluster_kernel(gray, hd, golden, det, card) -> dict:
@@ -1221,10 +1202,10 @@ def phase_cluster_kernel(gray, hd, golden, det, card) -> dict:
     stats = {"max_abs_err": 0.0, "cases": {}}
     for cs, slots in cases:
         args = (*cluster_sets.buffers(cs, slots, dev), cs.iou)
-        before = cd.cluster_device_launches
+        before = tally()["cluster_device"]
         got, gvalid = cd.cluster_device(*args, capacity=slots)
         torch.cuda.synchronize()
-        check(cd.cluster_device_launches == before + 1,
+        check(tally()["cluster_device"] == before + 1,
               f"cluster_device {cs.name}: not one launch counted")
         plain_ms, (want, wvalid) = plain_run(
             lambda: cd.cluster_plain(*args))
@@ -1275,12 +1256,12 @@ def phase_device_detector(gray, hd, golden, det, per_frame_detect,
     with sync_free_dispatch(det):
         for name, frames, prm, _ in streams:
             before = kernel_counts()
-            reset_ladder_counts()
+            det.ladder.clear()
             streamed[name] = list(det.detect_stream_device(
                 frames, prm, iou_threshold=iou, seed=SEED, depth=DET_DEPTH))
             after = kernel_counts()
             per_stream[name] = dict(
-                ladder=ladder_counts(),
+                ladder=ladder_counts(det),
                 launches={n: after[n] - before[n] for n in after})
     launches = kernel_counts()
 
@@ -1343,7 +1324,6 @@ def phase_device_detector(gray, hd, golden, det, per_frame_detect,
         saved = port_det.DEV_CAPS_ESCALATED
         if escalated is not None:
             port_det.DEV_CAPS_ESCALATED = escalated
-        reset_ladder_counts()
         try:
             with sync_free_dispatch(rdet):
                 [got] = rdet.detect_stream_device(
@@ -1353,7 +1333,7 @@ def phase_device_detector(gray, hd, golden, det, per_frame_detect,
             port_det.DEV_CAPS_ESCALATED = saved
         want = det.detect(frame, frame.shape[0], frame.shape[1], hd_params,
                           iou_threshold=iou, generator=frame_generator(3))
-        counts = ladder_counts()
+        counts = ladder_counts(rdet)
         check(_same_results(got, want) and len(got) >= 2,
               f"ladder rung {rung}: != detect")
         check(counts[counter] == 1 and sum(counts.values())
@@ -1447,7 +1427,7 @@ def phase_host_tail(gray, hd, goldens, card) -> dict:
     out = {"modes": {}, "timing": {}, "shapes": {}}
     for mode, (ht, ref) in cascades.items():
         # ---- counted: both streams, then the golden corpus
-        reset_face_counts()
+        reset_kernel_counts()
         got = {name: list(ht.stream_hits(fr, depth=depth, **cfg))
                for name, fr, cfg, depth in shapes}
         calls = STREAM_FRAMES + HD_FRAMES
@@ -1613,30 +1593,19 @@ def phase_device_host_tail(gray, hd, golden, det, per_frame_detect,
     phase 8)."""
     from pigo_tpu_torch import FaceCascade, FaceDetector
     from pigo_tpu_torch import detector as port_det
-    from pigo_tpu_torch.ops import cluster_device as cd
-    from pigo_tpu_torch.ops import face_cuda, pupil_cuda
 
     _, iou, streams = detector_streams(gray, hd, golden)
     hdet = FaceDetector(FaceCascade(host_tail=True), det.pupil, det.landmarks,
                         host_tail=True)
 
-    def counts():
-        return {"face_cascade": face_cuda.face_cascade_launches,
-                "face_finish": face_cuda.face_finish_launches,
-                "pupil_walk": pupil_cuda.pupil_walk_launches,
-                "cluster_device": cd.cluster_device_launches}
-
     summary, timing = {}, {}
     for name, frames, prm, _ in streams:
-        reset_face_counts()
-        pupil_cuda.pupil_walk_launches = cd.cluster_device_launches = 0
-        reset_ladder_counts()
-        port_det.tail_cap_escalations = 0
+        reset_kernel_counts()
+        hdet.ladder.clear()
         with sync_free_dispatch(hdet):
             got = list(hdet.detect_stream_device(
                 frames, prm, iou_threshold=iou, seed=SEED, depth=DET_DEPTH))
-        launches, ladder = counts(), ladder_counts()
-        ladder["tail_cap_escalations"] = port_det.tail_cap_escalations
+        launches, ladder = kernel_counts(), ladder_counts(hdet)
         check(len(got) == len(frames) and all(
             _same_results(a, b) for a, b in zip(got, per_frame_detect[name])),
             f"{name}: host-tail detect_stream_device != per-frame detect")
@@ -1654,8 +1623,9 @@ def phase_device_host_tail(gray, hd, golden, det, per_frame_detect,
         check(ladder["device_frame_waits"] == dispatches,
               f"{name}: {ladder['device_frame_waits']} host waits for "
               f"{dispatches} dispatches")
-        want = {"face_cascade": dispatches, "face_finish": 0,
-                "pupil_walk": 2 * dispatches, "cluster_device": dispatches}
+        want = {"face_cascade": dispatches, "face_prefix": 0,
+                "face_finish": 0, "pupil_walk": 2 * dispatches,
+                "cluster_device": dispatches}
         check(launches == want, f"{name}: launches {launches}, expected "
               f"{want}")
         routed = hdet.face._plan(*frames[0].shape, prm.min_size,
@@ -1693,7 +1663,6 @@ def phase_cli(gray, det, card) -> dict:
     from pigo_tpu_torch.cli import build_parser, detect_payload
     from pigo_tpu_torch.detector import CascadeParams
     from pigo_tpu_torch.io.image import rgb_to_grayscale
-    from pigo_tpu_torch.ops import face_cuda, pupil_cuda
 
     rgb = np.repeat(gray[..., None], 3, axis=2)
     argv = ["-in", "-", "-out", "empty",
@@ -1702,12 +1671,11 @@ def phase_cli(gray, det, card) -> dict:
             "-flpc", asset_path("cascade", "lps"), "-json", "-",
             "-seed", "7"]
     args = build_parser().parse_args(argv)
-    face_cuda.face_cascade_launches = pupil_cuda.pupil_walk_launches = 0
+    reset_kernel_counts()
     t0 = time.perf_counter()
     results, payload = detect_payload(rgb, args)
     first_ms = (time.perf_counter() - t0) * 1e3
-    launches = (face_cuda.face_cascade_launches,
-                pupil_cuda.pupil_walk_launches)
+    launches = (tally()["face_cascade"], tally()["pupil_walk"])
     check(launches == (1, 2), f"the CLI made {launches} (face_cascade, "
           "pupil_walk) launches, expected (1, 2)")
     want = det.detect(rgb_to_grayscale(rgb), *gray.shape,
@@ -1797,10 +1765,10 @@ def sharded_worker(rank: int, port: int, device: str) -> int:
         sh.window_sharded_hits(hdf[0], *hd.shape, **HD)  # plans, uploads
         sh.batch_hits(batch, *gray.shape, **HEADLINE)
         dist.barrier()
-        reset_face_counts()
+        reset_kernel_counts()
         window = [sh.window_sharded_hits(f, *hd.shape, **HD) for f in hdf]
         window_launches = face_counts()
-        reset_face_counts()
+        reset_kernel_counts()
         dets, total = sh.batch_hits(batch, *gray.shape, **HEADLINE)
         batch_launches = face_counts()
         win_ms = [_call_ms(lambda: sh.window_sharded_hits(
@@ -1891,7 +1859,7 @@ def phase_sharded(gray, hd, card) -> dict:
                 want = fc.sparse_hits(frame, *frame.shape, angle=angle, **cfg)
                 for n in SHARDED_NS:
                     expected = _band_launches(sh, frame, cfg, n)
-                    reset_face_counts()
+                    reset_kernel_counts()
                     got = sh.window_bands_hits(frame, *frame.shape, n,
                                                angle=angle, **cfg)
                     counts = face_counts()
@@ -1968,7 +1936,7 @@ def phase_sharded(gray, hd, card) -> dict:
                                    for f, b in zip(per_frame, per_batch))
             sh.window_sharded_hits(hdf[0], *hd.shape, **HD)  # plans
             sh.batch_hits(batch, *gray.shape, **HEADLINE)
-            reset_face_counts()
+            reset_kernel_counts()
             window = [sh.window_sharded_hits(f, *hd.shape, **HD)
                       for f in hdf]
             dets, total = sh.batch_hits(batch, *gray.shape, **HEADLINE)
@@ -2127,7 +2095,7 @@ def phase_serve(hd, card) -> dict:
 
     # ---- the counted run: (a) the engine, then (b) the server
     reset_kernel_counts()
-    reset_ladder_counts()
+    ladder = collections.Counter()  # the engines' detectors' ladders
     out = {"card": card, "frames": {k: list(f.shape[:2])
                                     for k, f in frames.items()},
            "faces_eyed": faces, "cpu_checked_seeds": cpu_checked,
@@ -2167,6 +2135,7 @@ def phase_serve(hd, card) -> dict:
                       "seed + i)")
         finally:
             engine.close()
+        ladder.update(engine.det.ladder)
         requests += engine_n
         stream_requests += engine_n - 1 - SERVE_MIXED // 2
         out["engine"][f"callers_{threads}"] = dict(
@@ -2239,10 +2208,11 @@ def phase_serve(hd, card) -> dict:
         srv.server_close()
         engine.close()
         thread.join(60)
+    ladder.update(engine.det.ladder)
     requests += http_n
     stream_requests += http_n
     launches = kernel_counts()
-    ladder = ladder_counts()
+    ladder = {k: ladder[k] for k in LADDER}
 
     up = ladder["face_slot_escalations"] + ladder["hit_cap_escalations"]
     check(ladder["detect_fallbacks"] == 0,

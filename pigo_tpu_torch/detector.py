@@ -79,11 +79,10 @@ from pigo_tpu_torch.models.pupil import (
     ensemble_medians,
     to_device,
 )
-from pigo_tpu_torch.ops import cluster_device as cluster_ops
-from pigo_tpu_torch.ops import face_cuda, pupil_cuda, pupil_dense
+from pigo_tpu_torch.ops import pupil_cuda, pupil_dense
 from pigo_tpu_torch.ops.cluster import cluster_detections
 from pigo_tpu_torch.ops.cluster_device import MAX_CAPACITY, cluster_device
-from pigo_tpu_torch.utils import profiling
+from pigo_tpu_torch.utils import build, profiling
 from pigo_tpu_torch.utils.device import resolve_device
 
 # CLI constants (cmd/pigo/main.go:54, :360, :404)
@@ -113,28 +112,11 @@ DEV_TAIL_CAP = 512
 DEV_MAX_FACES = 2
 DEV_CAPS_ESCALATED = (FaceCascade.HIT_CAPACITY, FaceCascade.HIT_CAPACITY, 32)
 
-# The device stream's ladder and host waits, counted (read by
-# chip_smoke.py; callers reset them to 0): a re-dispatch with more face
-# slots, one with larger hit caps (and, among those, the ones whose host
-# tail overflowed its cap), a frame handed to `detect`, and each wait for a
-# frame program's download.
-face_slot_escalations = 0
-hit_cap_escalations = 0
-tail_cap_escalations = 0
-detect_fallbacks = 0
-device_frame_waits = 0
-
 # Face-stage keys whose CUDA graphs a FaceDetector keeps on a card (the
 # device stream's, `_stage_graphs`); the least recently used goes, with
 # its frame programs' graphs, so a caller that meets many frame sizes (the
 # serving engine) holds a bounded amount of device memory.
 GRAPH_KEYS = 8
-
-# The kernels' launch counters that a graph's replay adds to (`_Graph`).
-_LAUNCH_COUNTERS = (
-    (face_cuda, "face_cascade_launches"), (face_cuda, "face_prefix_launches"),
-    (face_cuda, "face_finish_launches"), (pupil_cuda, "pupil_walk_launches"),
-    (cluster_ops, "cluster_device_launches"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -518,37 +500,28 @@ class _FrameTicket:
     event: object = None
 
 
-def _launch_counts() -> list[int]:
-    return [getattr(mod, name) for mod, name in _LAUNCH_COUNTERS]
-
-
-def _set_launch_counts(counts) -> None:
-    for (mod, name), n in zip(_LAUNCH_COUNTERS, counts):
-        setattr(mod, name, n)
-
-
 class _Graph:
     """One call's card work as a CUDA graph (the device stream on a card):
     captured at the first `run(fn)`, then replayed at each run, which
     returns fn's outputs as captured, rewritten by the replay. fn reads
     static buffers that the caller fills before each run; the graph keeps
     fn, and with it every tensor fn reads, alive. Each replay adds the
-    kernel launches it holds to the kernels' launch counters, so that
-    they count what ran; the capture and its warm-up run add none."""
+    kernel launches its capture recorded to build.LAUNCHES, so that it
+    counts what ran; the capture and its warm-up run add none."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.graph = None
         self.fn = None
         self.out = None
-        self.launches: list[int] = []
+        self.launches: collections.Counter = collections.Counter()
 
     def run(self, fn):
         if self.graph is None:
             self._capture(fn)
         self.graph.replay()
-        _set_launch_counts(n + k for n, k in zip(_launch_counts(),
-                                                 self.launches))
+        for kernel, n in self.launches.items():
+            build.count(kernel, n)
         return self.out
 
     def _capture(self, fn) -> None:
@@ -556,25 +529,20 @@ class _Graph:
         one-time set-up, such as the kernels' cudaFuncSetAttribute, so
         runs outside the capture), then its capture, thread-local so that
         another thread's CUDA calls (the serving engine's) cannot break
-        it. torch.cuda.graph synchronises the device before it captures."""
-        before = _launch_counts()
-        try:
-            with torch.cuda.device(self.device):
-                side = torch.cuda.Stream(self.device)
-                side.wait_stream(torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(side):
-                    fn()
-                torch.cuda.current_stream(self.device).wait_stream(side)
-                warm = _launch_counts()
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, stream=side,
-                                      capture_error_mode="thread_local"):
-                    out = fn()
-                self.launches = [b - a for a, b in zip(warm,
-                                                       _launch_counts())]
-        finally:
-            _set_launch_counts(before)
-        self.graph, self.fn, self.out = graph, fn, out
+        it. torch.cuda.graph synchronises the device before it captures.
+        Both count their launches into recorders of this thread
+        (build.recording), the warm-up's thrown away."""
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side), build.recording():
+                fn()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with build.recording() as launches, torch.cuda.graph(
+                    graph, stream=side, capture_error_mode="thread_local"):
+                out = fn()
+        self.graph, self.fn, self.out, self.launches = graph, fn, out, launches
         profiling.count("stream.graph_captures")
 
 
@@ -719,6 +687,14 @@ class FaceDetector:
                              f"max_faces >= 1), got {device_caps}")
         self.device_caps = caps
         self._auto_caps = device_caps is None
+        # the device stream's ladder and host waits, counted (always on,
+        # read by the tests and chip_smoke.py; clear() it to reset): a
+        # re-dispatch with more face slots ("face_slot_escalations"), one
+        # with larger hit caps ("hit_cap_escalations"; of those, each whose
+        # host tail overflowed its cap adds to "tail_cap_escalations"), a
+        # frame handed to `detect` ("detect_fallbacks"), and each wait for
+        # a frame program's download ("device_frame_waits")
+        self.ladder: collections.Counter = collections.Counter()
         self._recent_face_counts: collections.deque = collections.deque(
             maxlen=8)
         self._lmk_tables: dict[int, tuple] = {}
@@ -1147,16 +1123,14 @@ class FaceDetector:
         overflow with the
         power-of-two slots that hold the frame's faces; a frame beyond the
         top rung runs `detect` on this detector's device with the frame's
-        generator. Each rung is counted."""
-        global face_slot_escalations, hit_cap_escalations, \
-            tail_cap_escalations, detect_fallbacks, device_frame_waits
+        generator. Each rung is counted in `ladder`."""
         with profiling.span("stream.collect"):
             if ticket.out is None:
                 return []
             with profiling.span("stream.wait"):
                 if ticket.event is not None:
                     ticket.event.synchronize()
-            device_frame_waits += 1
+            self.ladder["device_frame_waits"] += 1
             out = ticket.out.numpy()
             caps = list(ticket.caps)
             s, npts = caps[2], ticket.npts
@@ -1173,7 +1147,7 @@ class FaceDetector:
                     caps[2] = slots
             if hit_ovf or face_ovf:
                 if tuple(caps) == ticket.caps:  # beyond the top rung
-                    detect_fallbacks += 1
+                    self.ladder["detect_fallbacks"] += 1
                     params, angle, iou_threshold, perturbs = ticket.args
                     frame = ticket.frame
                     gen = torch.Generator().manual_seed(ticket.seed)
@@ -1181,10 +1155,10 @@ class FaceDetector:
                         frame, frame.shape[-2], frame.shape[-1], params,
                         angle, iou_threshold, perturbs, generator=gen)
                 if hit_ovf:
-                    hit_cap_escalations += 1
-                    tail_cap_escalations += int(out[0]) >> 1
+                    self.ladder["hit_cap_escalations"] += 1
+                    self.ladder["tail_cap_escalations"] += int(out[0]) >> 1
                 else:
-                    face_slot_escalations += 1
+                    self.ladder["face_slot_escalations"] += 1
                 return self._collect_frame_device(
                     self._dispatch_frame_device(
                         ticket.frame, ticket.args, ticket.seed, ticket.slot,

@@ -65,17 +65,13 @@ from pigo_tpu_torch.cascade.format import FaceForest, unpack_face_cascade
 from pigo_tpu_torch.convert import face_forest_from_numpy
 from pigo_tpu_torch.ops import face_cuda
 from pigo_tpu_torch.ops.cluster import cluster_detections
+from pigo_tpu_torch.ops.pupil_dense import angle_index
 from pigo_tpu_torch.ops.windows import build_window_plan
 from pigo_tpu_torch.utils import profiling
 from pigo_tpu_torch.utils.device import resolve_device
 
 # Window indices travel as f32 in the packed hit list: exact below 2^24.
 MAX_WINDOWS = 1 << 24
-
-
-def angle_index(angle: float) -> int:
-    """Rotation-table index of an angle in turns; 0 is upright."""
-    return int(32.0 * min(angle, 1.0)) if angle > 0.0 else 0
 
 
 def destride(pixels, rows: int, cols: int, dim: int):

@@ -1,5 +1,4 @@
-"""On-device IoU clustering (fixed capacity): wrapper, plain version and
-launch count.
+"""On-device IoU clustering (fixed capacity): wrapper and plain version.
 
 The counterpart of pigo_tpu/ops/cluster_device.py. The semantics are the
 host clustering's (ops/cluster.py; reference core/pigo.go:262-308), and
@@ -18,7 +17,8 @@ slots gives the host function's output in its order.
 
 On a CPU tensor `cluster_device` runs the plain version; on a CUDA tensor
 it launches csrc/cluster_device.cu (one cooperative launch over the card,
-with a scratch buffer from the caching allocator) or raises.
+with a scratch buffer from the caching allocator) through build.launch,
+which counts it, or raises.
 """
 
 from __future__ import annotations
@@ -30,10 +30,6 @@ import torch
 
 from pigo_tpu_torch.utils import build
 from pigo_tpu_torch.utils.device import resolve_device
-
-# Kernel launches made by `cluster_device` (CUDA tensors only). Callers
-# reset it to 0 and read it to show that a run went through the kernel.
-cluster_device_launches = 0
 
 # Slots one call takes: a row of the kernel's membership matrix holds at
 # most 256 words (csrc/cluster_device.cu kClusterMaxWords), and no capacity
@@ -49,8 +45,6 @@ def _bind(lib: ctypes.CDLL) -> None:
                                         vp, vp, vp]
     lib.pigo_cluster_scratch_bytes.restype = ctypes.c_longlong
     lib.pigo_cluster_scratch_bytes.argtypes = [i]
-    lib.pigo_cuda_error_string.restype = ctypes.c_char_p
-    lib.pigo_cuda_error_string.argtypes = [i]
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -127,7 +121,6 @@ def cluster_device(dets: torch.Tensor, valid: torch.Tensor,
     """(clusters f32 [CC, 4], cluster_valid bool [CC]) of dets f32 [CC, 4]
     (row, col, scale, q), valid bool [CC] and count int32 [1] (or []), all
     on one device, with CC = capacity (module docstring)."""
-    global cluster_device_launches
     _check(dets, valid, count, capacity)
     dev = dets.device
     if dev.type == "cpu":
@@ -142,16 +135,10 @@ def cluster_device(dets: torch.Tensor, valid: torch.Tensor,
     # contents ignored: the kernel initialises what it reads
     scratch = torch.empty(lib.pigo_cluster_scratch_bytes(capacity),
                           dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pigo_cluster_device(
-            dets.data_ptr(), valid.data_ptr(), count.data_ptr(), capacity,
-            float(iou_threshold), out.data_ptr(), out_valid.data_ptr(),
-            scratch.data_ptr(), stream)
-    if rc != 0:
-        msg = lib.pigo_cuda_error_string(rc).decode()
-        raise RuntimeError(f"cluster_device launch failed: {msg} ({rc})")
-    cluster_device_launches += 1
+    build.launch(lib, "pigo_cluster_device", (
+        dets.data_ptr(), valid.data_ptr(), count.data_ptr(), capacity,
+        float(iou_threshold), out.data_ptr(), out_valid.data_ptr(),
+        scratch.data_ptr()), dev, "cluster_device")
     return out, out_valid
 
 

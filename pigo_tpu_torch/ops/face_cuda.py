@@ -1,4 +1,4 @@
-"""The soft-cascade kernels on the card: routing, wrappers, launch counts.
+"""The soft-cascade kernels on the card: routing and wrappers.
 
 Three kernels, each with its plain version in ops/face_dense.py, all in
 one library (csrc/face_cascade.cu and csrc/face_prefix.cu, built together):
@@ -35,7 +35,8 @@ VMEM and SMEM budgets: here all prefix windows of a frame batch go to one
 output in place, whichever scales each kernel reads.
 
 On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
-launches its kernel or raises.
+launches its kernel through build.launch, which counts it under the
+wrapper's name, or raises.
 """
 
 from __future__ import annotations
@@ -51,12 +52,6 @@ from pigo_tpu_torch.ops import face_dense
 from pigo_tpu_torch.ops.pupil_dense import QCOS_TABLE, QSIN_TABLE
 from pigo_tpu_torch.ops.windows import WindowPlan
 from pigo_tpu_torch.utils import build
-
-# Kernel launches made by each wrapper (CUDA tensors only). Callers reset
-# them to 0 and read them to show that a run went through the kernels.
-face_cascade_launches = 0
-face_prefix_launches = 0
-face_finish_launches = 0
 
 # Routing constants (pigo_tpu/ops/face_pallas.py:83, :107, :113-154). Plans
 # are cached per FaceCascade, so a changed value takes effect on new
@@ -203,8 +198,6 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.pigo_face_finish.argtypes = [
         vp, ll, i, i, i, vp, vp, ll, vp, vp, vp, i, i, i, i, i, vp, ll, vp,
     ]
-    lib.pigo_cuda_error_string.restype = ctypes.c_char_p
-    lib.pigo_cuda_error_string.argtypes = [i]
     lib.pigo_face_schedule.restype = None
     lib.pigo_face_schedule.argtypes = [ctypes.POINTER(i)]
 
@@ -308,15 +301,6 @@ def _rotation(angle_idx):
     return (int(angle_idx > 0), QCOS_TABLE[angle_idx], QSIN_TABLE[angle_idx])
 
 
-def _run(lib, fn, args, frames, what):
-    with torch.cuda.device(frames.device):
-        stream = torch.cuda.current_stream(frames.device).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
-    if rc != 0:
-        msg = lib.pigo_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
-
-
 def _out(frames, base, out):
     if out is None:
         out = torch.empty((frames.shape[0], base.shape[0]),
@@ -343,7 +327,6 @@ def face_cascade(
     score array). Upright windows must lie inside the frame with the
     pyramid margin (as build_window_plan makes them): the kernel does not
     bounds-check upright reads."""
-    global face_cascade_launches
     cols = _check(frames, base, scale, codes, preds, thresh, angle_idx, cols,
                   out)
     if not 1 <= t_limit <= preds.shape[0]:
@@ -358,11 +341,10 @@ def face_cascade(
     if out.numel() == 0:
         return out
     args = _common_args(frames, base, scale, codes, preds, thresh, cols)
-    _run(load_kernel(), "pigo_face_cascade",
-         args + (preds.shape[0], t_limit, *_rotation(angle_idx),
-                 out.data_ptr(), out.stride(0)),
-         frames, "face_cascade")
-    face_cascade_launches += 1
+    build.launch(load_kernel(), "pigo_face_cascade",
+                 args + (preds.shape[0], t_limit, *_rotation(angle_idx),
+                         out.data_ptr(), out.stride(0)),
+                 dev, "face_cascade")
     return out
 
 
@@ -373,7 +355,6 @@ def face_prefix(frames, base, scale, codes, preds, thresh, t_limit, *,
     survives them (arguments as `face_cascade`). Raises ValueError when
     the t_limit trees' tables exceed PREFIX_SMEM_BYTES of shared memory,
     on either device."""
-    global face_prefix_launches
     cols = _check(frames, base, scale, codes, preds, thresh, angle_idx, cols,
                   out)
     if not 1 <= t_limit < preds.shape[0]:
@@ -393,11 +374,10 @@ def face_prefix(frames, base, scale, codes, preds, thresh, t_limit, *,
     if out.numel() == 0:
         return out
     args = _common_args(frames, base, scale, codes, preds, thresh, cols)
-    _run(load_kernel(), "pigo_face_prefix",
-         args + (t_limit, *_rotation(angle_idx), out.data_ptr(),
-                 out.stride(0), smem),
-         frames, "face_prefix")
-    face_prefix_launches += 1
+    build.launch(load_kernel(), "pigo_face_prefix",
+                 args + (t_limit, *_rotation(angle_idx), out.data_ptr(),
+                         out.stride(0), smem),
+                 dev, "face_prefix")
     return out
 
 
@@ -407,7 +387,6 @@ def face_finish(frames, base, scale, codes, preds, thresh, q, *,
     (a view with unit column stride over the windows base/scale describe)
     becomes the window's full-forest score; the other scores stay. Returns
     q. Plain version: face_dense.finish_marked."""
-    global face_finish_launches
     cols = _check(frames, base, scale, codes, preds, thresh, angle_idx, cols,
                   q)
     dev = _device(frames, "face_finish")
@@ -418,9 +397,8 @@ def face_finish(frames, base, scale, codes, preds, thresh, q, *,
     if q.numel() == 0:
         return q
     args = _common_args(frames, base, scale, codes, preds, thresh, cols)
-    _run(load_kernel(), "pigo_face_finish",
-         args + (preds.shape[0], *_rotation(angle_idx), q.data_ptr(),
-                 q.stride(0)),
-         frames, "face_finish")
-    face_finish_launches += 1
+    build.launch(load_kernel(), "pigo_face_finish",
+                 args + (preds.shape[0], *_rotation(angle_idx), q.data_ptr(),
+                         q.stride(0)),
+                 dev, "face_finish")
     return q

@@ -1,4 +1,4 @@
-"""The regression-walk kernel on the card: wrapper and launch count.
+"""The regression-walk kernel on the card: its wrappers.
 
 `pupil_walk` is the port of pigo_tpu/ops/pupil_pallas.py::_stage_kernel
 (the kernel is csrc/pupil_walk.cu). Where the TPU path launched one kernel
@@ -10,7 +10,8 @@ kernel reads the codes through the 1-based layout of
 CUDA forest.
 
 On a CPU tensor the wrapper runs the plain version (ops/pupil_dense.py);
-on a CUDA tensor it launches the kernel or raises.
+on a CUDA tensor it launches the kernel through build.launch, which
+counts it as "pupil_walk", or raises.
 
 `pupil_ensemble` is the kernel's ensemble mode, on the card only: one
 launch jitters G groups of P walkers from their anchors and uniforms
@@ -18,7 +19,8 @@ launch jitters G groups of P walkers from their anchors and uniforms
 median (pupil_dense.median_vote), bit for bit what pupil_dense.ensemble
 computes with this module's walk. A group's anchor may come from the eye
 medians an earlier launch wrote (the landmark anchors of
-detector.landmark_anchors), so a frame's post stage is two launches.
+detector.landmark_anchors), so a frame's post stage is two launches. It is
+the same kernel, and counts as "pupil_walk" too.
 """
 
 from __future__ import annotations
@@ -29,10 +31,6 @@ import torch
 
 from pigo_tpu_torch.ops import pupil_dense
 from pigo_tpu_torch.utils import build
-
-# Kernel launches made by `pupil_walk` (CUDA tensors only). Callers reset
-# it to 0 and read it to show that a run went through the kernel.
-pupil_walk_launches = 0
 
 # One warp per walker, one lane per tree (csrc/pupil_walk.cu).
 MAX_TREES = 32
@@ -55,8 +53,6 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp, i, i, i, vp, vp, i, i, i, i, f, i, f, f, vp, vp, vp, vp, vp, i,
         vp, vp, ll, ll, i, i, vp, ll, ll, vp,
     ]
-    lib.pigo_cuda_error_string.restype = ctypes.c_char_p
-    lib.pigo_cuda_error_string.argtypes = [i]
     lib.pigo_pupil_schedule.restype = None
     lib.pigo_pupil_schedule.argtypes = [ctypes.POINTER(i)]
 
@@ -131,15 +127,6 @@ def _check_card_layout(codes, preds) -> None:
             "before) and preds 16-byte aligned (read as leaf pairs)")
 
 
-def _launched(lib, rc: int, what: str) -> None:
-    """Raise for a failed launch; count a good one."""
-    global pupil_walk_launches
-    if rc != 0:
-        msg = lib.pigo_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
-    pupil_walk_launches += 1
-
-
 def _forest_args(codes, preds, pixels, nrows, ncols, dim, scale_mult,
                  rotated, angle_idx) -> tuple:
     """The arguments both C entry points open with."""
@@ -179,15 +166,11 @@ def pupil_walk(codes, preds, casc_id, r0, c0, s0, col_sign, pixels, *,
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     if n == 0:
         return out[0], out[1], out[2]
-    lib = load_kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pigo_pupil_walk(
-            *_forest_args(codes, preds, pixels, nrows, ncols, dim,
-                          scale_mult, rotated, angle_idx),
-            casc_id.data_ptr(), col_sign.data_ptr(), r0.data_ptr(),
-            c0.data_ptr(), s0.data_ptr(), n, out.data_ptr(), stream)
-    _launched(lib, rc, "pupil_walk")
+    build.launch(load_kernel(), "pigo_pupil_walk", (
+        *_forest_args(codes, preds, pixels, nrows, ncols, dim, scale_mult,
+                      rotated, angle_idx),
+        casc_id.data_ptr(), col_sign.data_ptr(), r0.data_ptr(),
+        c0.data_ptr(), s0.data_ptr(), n, out.data_ptr()), dev, "pupil_walk")
     return out[0], out[1], out[2]
 
 
@@ -240,16 +223,12 @@ def pupil_ensemble(codes, preds, out, u, pixels, *, col0, nrows, ncols,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib = load_kernel()
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
-        rc = lib.pigo_pupil_ensemble(
-            *_forest_args(codes, preds, pixels, nrows, ncols, dim,
-                          scale_mult, rotated, angle_idx),
-            ptr(casc_id), ptr(flips),
-            *(map(ptr, anchors) if anchors is not None else (None,) * 3),
-            npts, u.data_ptr(), ptr(u_rows), u.shape[0], g, p,
-            pupil_dense.median_index(p), out.data_ptr(), out.shape[1], col0,
-            stream)
-    _launched(lib, rc, "pupil_ensemble")
+    build.launch(load_kernel(), "pigo_pupil_ensemble", (
+        *_forest_args(codes, preds, pixels, nrows, ncols, dim, scale_mult,
+                      rotated, angle_idx),
+        ptr(casc_id), ptr(flips),
+        *(map(ptr, anchors) if anchors is not None else (None,) * 3),
+        npts, u.data_ptr(), ptr(u_rows), u.shape[0], g, p,
+        pupil_dense.median_index(p), out.data_ptr(), out.shape[1], col0),
+        codes.device, "pupil_walk")
     return out

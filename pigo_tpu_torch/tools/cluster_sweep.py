@@ -66,7 +66,7 @@ def build_variants(variants: dict[str, tuple[dict | None, str]]):
     for name, (so, ptxas) in built.items():
         lib = ctypes.CDLL(so)
         if hasattr(lib, "pigo_cluster_scratch_bytes"):
-            cd._bind(lib)
+            build.bind_library(lib, cd._bind)
             call = _caller(lib)
         else:
             call = _one_block_caller(lib)

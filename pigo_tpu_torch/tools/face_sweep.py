@@ -138,10 +138,11 @@ def build_variants(variants: dict[str, tuple[dict | None, str]]):
     libs = {}
     for name in variants:
         face = ctypes.CDLL(built[name, "face_cascade"][0])
-        face_cuda._bind(face)
+        build.bind_library(face, face_cuda._bind)
         walk = ctypes.CDLL(built[name, "pupil_walk"][0])
         try:
-            pupil_cuda._bind(walk)  # binds the walk before the schedule
+            # binds the walk before the schedule
+            build.bind_library(walk, pupil_cuda._bind)
             warps = pupil_cuda.schedule(walk)
         except AttributeError:  # a library from before pigo_pupil_schedule
             warps = None

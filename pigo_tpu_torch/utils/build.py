@@ -19,16 +19,24 @@ same directory, named by a hash of its source and the flags
 rounded separately, as the reference does. It never builds into the
 repository's `native/`, where the JAX package builds and loads its own
 library.
+
+Every kernel goes through `launch`, which counts it in LAUNCHES by kernel
+name; a thread inside `recording()` counts into its recorder instead (a
+CUDA graph's capture, whose replays then add what it recorded).
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -49,9 +57,13 @@ NATIVE_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
 # kernels' entry points share one library and one binder (ops/face_cuda.py).
 SOURCES = {"face_cascade": ("face_cascade.cu", "face_prefix.cu")}
 
-# Loaded kernel libraries by name (the only module state).
+# Loaded kernel libraries by name, and the launches made on the card by
+# kernel name (always on, read by the tests and chip_smoke.py; clear() it
+# to reset), both under _lock.
 _libs: dict[str, ctypes.CDLL] = {}
+LAUNCHES: collections.Counter = collections.Counter()
 _lock = threading.Lock()
+_local = threading.local()  # .recorder: this thread's open `recording`
 
 
 def find_nvcc() -> str:
@@ -113,16 +125,62 @@ def ptxas_report(name: str) -> str:
         return fh.read()
 
 
+def bind_library(lib: ctypes.CDLL, bind) -> ctypes.CDLL:
+    """Set the argtypes and restypes of lib's pigo_cuda_error_string,
+    which every kernel library has, then `bind(lib)` sets its own
+    functions'. Returns lib."""
+    lib.pigo_cuda_error_string.restype = ctypes.c_char_p
+    lib.pigo_cuda_error_string.argtypes = [ctypes.c_int]
+    bind(lib)
+    return lib
+
+
 def load(name: str, bind) -> ctypes.CDLL:
-    """Build (at first use) and load library `name`, then `bind(lib)` sets
-    its functions' argtypes and restypes; cached per process."""
+    """Build (at first use), load and bind library `name` (`bind_library`);
+    cached per process."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
-            bind(lib)
-            _libs[name] = lib
+            lib = _libs[name] = bind_library(ctypes.CDLL(build(name)), bind)
         return lib
+
+
+def launch(lib: ctypes.CDLL, entry: str, args: tuple, device: torch.device,
+           kernel: str) -> None:
+    """lib.<entry>(*args, stream) on `device`'s current stream, counted as
+    one launch of `kernel`; raises RuntimeError, named after the entry
+    point without its `pigo_`, when it returns an error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        msg = lib.pigo_cuda_error_string(rc).decode()
+        raise RuntimeError(
+            f"{entry.removeprefix('pigo_')} launch failed: {msg} ({rc})")
+    count(kernel)
+
+
+def count(kernel: str, n: int = 1) -> None:
+    """Add n launches of `kernel` to this thread's open recording, or else
+    to LAUNCHES."""
+    recorder = getattr(_local, "recorder", None)
+    if recorder is not None:
+        recorder[kernel] += n
+        return
+    with _lock:
+        LAUNCHES[kernel] += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Within it, this thread's launches count into the Counter it yields,
+    not into LAUNCHES; other threads' count as before."""
+    outer = getattr(_local, "recorder", None)
+    _local.recorder = collections.Counter()
+    try:
+        yield _local.recorder
+    finally:
+        _local.recorder = outer
 
 
 def native_library_path() -> str:

@@ -26,6 +26,7 @@ from pigo_tpu_torch.convert import face_forest_from_numpy
 from pigo_tpu_torch.detector import CascadeParams
 from pigo_tpu_torch.ops import (face_cuda, face_dense, pupil_cuda,
                                 pupil_dense, windows)
+from pigo_tpu_torch.utils.build import LAUNCHES
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADLINE = dict(min_size=20, max_size=1000, shift_factor=0.1,
@@ -61,10 +62,10 @@ def test_kernel_matches_plain_on_card(cuda_device, gray):
     base, scale = face_cuda.device_plan(plan, cuda_device)
     ft_frames = torch.from_numpy(frames).to(cuda_device)
     for t_limit in (ft.num_trees, 32):
-        before = face_cuda.face_cascade_launches
+        before = LAUNCHES["face_cascade"]
         qk = face_cuda.face_cascade(ft_frames, base, scale, ft.codes,
                                     ft.preds, ft.thresh, t_limit)
-        assert face_cuda.face_cascade_launches == before + 1
+        assert LAUNCHES["face_cascade"] == before + 1
         qp = face_dense.classify_windows(ft_frames, base, scale, ft.codes,
                                          ft.preds, ft.thresh, t_limit)
         torch.cuda.synchronize()
@@ -102,12 +103,12 @@ def test_prefix_rotated_and_finish_match_plain_on_card(cuda_device):
             if a == 0 and cols != frames.shape[2]:
                 continue
             kw = dict(angle_idx=a, cols=cols)
-            for fn, counter, t_limit in (
-                    (face_cuda.face_prefix, "face_prefix_launches", 32),
-                    (face_cuda.face_cascade, "face_cascade_launches", 80)):
-                before = getattr(face_cuda, counter)
+            for fn, kernel, t_limit in (
+                    (face_cuda.face_prefix, "face_prefix", 32),
+                    (face_cuda.face_cascade, "face_cascade", 80)):
+                before = LAUNCHES[kernel]
                 got = fn(f, base, scale, *tables, t_limit, **kw)
-                assert getattr(face_cuda, counter) == before + 1
+                assert LAUNCHES[kernel] == before + 1
                 want = face_dense.classify_windows(f, base, scale, *tables,
                                                    t_limit, **kw)
                 torch.cuda.synchronize()
@@ -115,10 +116,10 @@ def test_prefix_rotated_and_finish_match_plain_on_card(cuda_device):
                 if t_limit == 32:
                     marks = got
             assert (marks == face_dense.PREFIX_MARK).any()
-            before = face_cuda.face_finish_launches
+            before = LAUNCHES["face_finish"]
             got = face_cuda.face_finish(f, base, scale, *tables,
                                         marks.clone(), **kw)
-            assert face_cuda.face_finish_launches == before + 1
+            assert LAUNCHES["face_finish"] == before + 1
             want = face_dense.finish_marked(f, base, scale, *tables,
                                             marks.clone(), **kw)
             torch.cuda.synchronize()
@@ -156,8 +157,8 @@ def test_cascade_schedule_edges_on_card(cuda_device, gray, forest_kind):
     base, scale = face_cuda.device_plan(plan, cuda_device)
     for a in (0, 2):
         for t_limit in limits:
-            before = (face_cuda.face_cascade_launches,
-                      face_cuda.face_finish_launches)
+            before = (LAUNCHES["face_cascade"],
+                      LAUNCHES["face_finish"])
             got = face_cuda.face_cascade(frames, base, scale, *tables,
                                          t_limit, angle_idx=a)
             want = face_dense.classify_windows(frames, base, scale, *tables,
@@ -167,7 +168,7 @@ def test_cascade_schedule_edges_on_card(cuda_device, gray, forest_kind):
             if forest_kind == "never_fail":
                 assert bool((got != -1.0).all())
             if t_limit == ft.num_trees:
-                assert face_cuda.face_cascade_launches == before[0] + 1
+                assert LAUNCHES["face_cascade"] == before[0] + 1
                 continue
             assert (got == face_dense.PREFIX_MARK).any()
             fin = face_cuda.face_finish(frames, base, scale, *tables,
@@ -176,8 +177,8 @@ def test_cascade_schedule_edges_on_card(cuda_device, gray, forest_kind):
                                             got.clone(), angle_idx=a)
             torch.cuda.synchronize()
             assert torch.equal(fin, want), (a, t_limit)
-            assert (face_cuda.face_cascade_launches,
-                    face_cuda.face_finish_launches) == (before[0] + 1,
+            assert (LAUNCHES["face_cascade"],
+                    LAUNCHES["face_finish"]) == (before[0] + 1,
                                                         before[1] + 1)
 
 
@@ -218,10 +219,10 @@ def test_prefix_schedule_edges_on_card(cuda_device, gray, forest_kind):
     pb, ps = base[seg.lo:seg.hi], scale[seg.lo:seg.hi]
     for a in (0, 2):
         for t_limit in limits:
-            before = face_cuda.face_prefix_launches
+            before = LAUNCHES["face_prefix"]
             got = face_cuda.face_prefix(frames, pb, ps, *tables, t_limit,
                                         angle_idx=a)
-            assert face_cuda.face_prefix_launches == before + 1
+            assert LAUNCHES["face_prefix"] == before + 1
             want = face_dense.classify_windows(frames, pb, ps, *tables,
                                                t_limit, angle_idx=a)
             torch.cuda.synchronize()
@@ -241,15 +242,15 @@ def test_prefix_shared_memory_limit_raises_on_card(cuda_device):
     base = torch.full((4,), 300 * 600 + 300, dtype=torch.int32,
                       device=cuda_device)
     scale = torch.full((4,), 100, dtype=torch.int32, device=cuda_device)
-    before = face_cuda.face_prefix_launches
+    before = LAUNCHES["face_prefix"]
     with pytest.raises(ValueError, match="shared memory"):
         face_cuda.face_prefix(frames, base, scale, ft.codes, ft.preds,
                               ft.thresh, 32)
-    assert face_cuda.face_prefix_launches == before
+    assert LAUNCHES["face_prefix"] == before
     face_cuda.face_prefix(frames, base, scale, ft.codes, ft.preds, ft.thresh,
                           16)
     torch.cuda.synchronize()
-    assert face_cuda.face_prefix_launches == before + 1
+    assert LAUNCHES["face_prefix"] == before + 1
 
 
 def test_face_cascade_modes_on_card(cuda_device, gray):
@@ -269,13 +270,13 @@ def test_face_cascade_modes_on_card(cuda_device, gray):
             assert np.array_equal(
                 fc.run_cascade(gray, 400, 320, angle=angle, **HEADLINE),
                 np.asarray(dets, np.float64).reshape(-1, 4))
-        before = (face_cuda.face_cascade_launches,
-                  face_cuda.face_prefix_launches,
-                  face_cuda.face_finish_launches)
+        before = (LAUNCHES["face_cascade"],
+                  LAUNCHES["face_prefix"],
+                  LAUNCHES["face_finish"])
         got = fc.sparse_hits_batch(frames, **HEADLINE)
-        after = (face_cuda.face_cascade_launches,
-                 face_cuda.face_prefix_launches,
-                 face_cuda.face_finish_launches)
+        after = (LAUNCHES["face_cascade"],
+                 LAUNCHES["face_prefix"],
+                 LAUNCHES["face_finish"])
         assert tuple(x - y for x, y in zip(after, before)) == per_batch
         assert all(np.array_equal(g, w) for g, w in zip(got, want))
 
@@ -289,7 +290,7 @@ def test_face_cascade_on_card_matches_golden(cuda_device, gray):
         golden = json.load(fh)
     fc = FaceCascade()
     assert fc.device.type == "cuda"
-    before = face_cuda.face_cascade_launches
+    before = LAUNCHES["face_cascade"]
     dets = fc.run_cascade(gray, 400, 320, **HEADLINE)
     assert np.array_equal(dets, np.asarray(golden["detections"], np.float64))
     clusters = fc.detect(gray, 400, 320, iou_threshold=golden["config"]["iou"],
@@ -302,7 +303,7 @@ def test_face_cascade_on_card_matches_golden(cuda_device, gray):
     batch = fc.sparse_hits_batch(np.stack(frames), **HEADLINE)
     assert all(np.array_equal(s, w) for s, w in zip(streamed, want))
     assert all(np.array_equal(b, w) for b, w in zip(batch, want))
-    assert face_cuda.face_cascade_launches - before == 2 + 4 + 4 + 1
+    assert LAUNCHES["face_cascade"] - before == 2 + 4 + 4 + 1
 
 
 def test_pupil_walk_matches_plain_on_card(cuda_device, gray):
@@ -325,10 +326,10 @@ def test_pupil_walk_matches_plain_on_card(cuda_device, gray):
         kw = dict(nrows=400, ncols=320, dim=320,
                   scale_mult=tensors.scale_mult, rotated=angle_idx > 0,
                   angle_idx=angle_idx)
-        before = pupil_cuda.pupil_walk_launches
+        before = LAUNCHES["pupil_walk"]
         got = pupil_cuda.pupil_walk(tensors.codes, tensors.preds, *starts,
                                     pix, **kw)
-        assert pupil_cuda.pupil_walk_launches == before + 1
+        assert LAUNCHES["pupil_walk"] == before + 1
         want = pupil_dense.walk(tensors.codes, tensors.preds, *starts, pix,
                                 **kw)
         torch.cuda.synchronize()
@@ -367,9 +368,9 @@ def test_pupil_walk_edges_on_card(cuda_device, gray, trees, depth):
     for a in (0, 8):
         kw = dict(nrows=400, ncols=320, dim=320, scale_mult=0.9,
                   rotated=a > 0, angle_idx=a)
-        before = pupil_cuda.pupil_walk_launches
+        before = LAUNCHES["pupil_walk"]
         got = pupil_cuda.pupil_walk(t.codes, t.preds, *starts, pix, **kw)
-        assert pupil_cuda.pupil_walk_launches == before + 1
+        assert LAUNCHES["pupil_walk"] == before + 1
         want = pupil_dense.walk(t.codes, t.preds, *starts, pix, **kw)
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(got, want)), a
@@ -387,12 +388,12 @@ def test_pupil_walk_refuses_codes_off_the_card_layout(cuda_device):
     one = torch.ones(1, device=cuda_device)
     ids = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     pix = torch.zeros(400 * 320, dtype=torch.uint8, device=cuda_device)
-    before = pupil_cuda.pupil_walk_launches
+    before = LAUNCHES["pupil_walk"]
     with pytest.raises(ValueError, match="card_codes"):
         pupil_cuda.pupil_walk(plain, t.preds, ids, one, one, one, ids + 1,
                               pix, nrows=400, ncols=320, dim=320,
                               scale_mult=t.scale_mult)
-    assert pupil_cuda.pupil_walk_launches == before
+    assert LAUNCHES["pupil_walk"] == before
 
 
 @pytest.mark.parametrize("casc_id,runs", [(8, True), (-1, False),
@@ -448,16 +449,16 @@ def test_face_detector_on_card_matches_golden(cuda_device, gray):
     c = golden["config"]
     det = FaceDetector()
     assert det.device.type == "cuda"
-    before = (face_cuda.face_cascade_launches,
-              pupil_cuda.pupil_walk_launches)
+    before = (LAUNCHES["face_cascade"],
+              LAUNCHES["pupil_walk"])
     res = det.detect(gray, 400, 320,
                      CascadeParams(c["min_size"], c["max_size"],
                                    c["shift_factor"], c["scale_factor"]),
                      iou_threshold=c["iou"],
                      uniforms=(uniforms("sample:face0:eyes", 2),
                                uniforms("sample:face0:lmk", 15)))
-    assert (face_cuda.face_cascade_launches - before[0],
-            pupil_cuda.pupil_walk_launches - before[1]) == (1, 2)
+    assert (LAUNCHES["face_cascade"] - before[0],
+            LAUNCHES["pupil_walk"] - before[1]) == (1, 2)
     [want] = golden["faces"]
     [got] = res
     assert [got.face.row, got.face.col, got.face.scale] == want["face"][:3]
@@ -492,9 +493,9 @@ def test_cluster_device_matches_plain_on_card(cuda_device):
         runs.append((cluster_sets.random_sets(slots)[-1], slots))
     for cs, cap in runs:
         args = (*cluster_sets.buffers(cs, cap, cuda_device), cs.iou)
-        before = cd.cluster_device_launches
+        before = LAUNCHES["cluster_device"]
         got, gvalid = cd.cluster_device(*args, capacity=cap)
-        assert cd.cluster_device_launches == before + 1, cs.name
+        assert LAUNCHES["cluster_device"] == before + 1, cs.name
         want, wvalid = cd.cluster_plain(*args)
         torch.cuda.synchronize()
         assert torch.equal(gvalid, wvalid), cs.name
@@ -513,22 +514,19 @@ def test_detect_stream_device_matches_detect_on_card(cuda_device, gray):
     """detect_stream_device on the card equals per-frame detect bit for
     bit on a few sample frames, with one face_cascade, one cluster_device
     and two pupil_walk launches and one host wait a frame."""
-    from pigo_tpu_torch import detector as port_det
-    from pigo_tpu_torch.ops import cluster_device as cd
-
     with open(os.path.join(ROOT, "tests", "golden", "sample.json")) as fh:
         c = json.load(fh)["config"]
     params = CascadeParams(c["min_size"], c["max_size"], c["shift_factor"],
                            c["scale_factor"])
     det = FaceDetector()
     frames = [np.roll(gray, i, axis=1) for i in range(4)]
-    before = (face_cuda.face_cascade_launches, cd.cluster_device_launches,
-              pupil_cuda.pupil_walk_launches, port_det.device_frame_waits)
+    before = (LAUNCHES["face_cascade"], LAUNCHES["cluster_device"],
+              LAUNCHES["pupil_walk"], det.ladder["device_frame_waits"])
     got = list(det.detect_stream_device(frames, params,
                                         iou_threshold=c["iou"], seed=7,
                                         depth=2))
-    after = (face_cuda.face_cascade_launches, cd.cluster_device_launches,
-             pupil_cuda.pupil_walk_launches, port_det.device_frame_waits)
+    after = (LAUNCHES["face_cascade"], LAUNCHES["cluster_device"],
+             LAUNCHES["pupil_walk"], det.ladder["device_frame_waits"])
     assert tuple(a - b for a, b in zip(after, before)) == (4, 4, 8, 4)
     for i, (frame, res) in enumerate(zip(frames, got)):
         want = det.detect(frame, 400, 320, params, iou_threshold=c["iou"],
@@ -593,7 +591,6 @@ def test_graphed_stream_equals_detect_on_card(cuda_device, gray, depth,
     replay counts the launches it holds: one face_cascade, one
     cluster_device and two pupil_walk a dispatch."""
     from pigo_tpu_torch import detector as port_det
-    from pigo_tpu_torch.ops import cluster_device as cd
 
     params, iou = CascadeParams(20, 1000, 0.2, 1.1), 0.1
     frames = [_tiled(gray, n, 2 * i)
@@ -605,21 +602,20 @@ def test_graphed_stream_equals_detect_on_card(cuda_device, gray, depth,
     cap = max(hits) - 1  # the frames with the most hits overflow it
     monkeypatch.setattr(port_det, "DEV_DENSE_CAP", cap)
     det = FaceDetector(det.face, det.pupil, det.landmarks)
-    port_det.hit_cap_escalations = port_det.device_frame_waits = 0
-    port_det.face_slot_escalations = port_det.detect_fallbacks = 0
-    before = (face_cuda.face_cascade_launches, cd.cluster_device_launches,
-              pupil_cuda.pupil_walk_launches)
+    before = (LAUNCHES["face_cascade"], LAUNCHES["cluster_device"],
+              LAUNCHES["pupil_walk"])
     got, counts, _ = _graph_counts(lambda: list(det.detect_stream_device(
         frames, params, iou_threshold=iou, seed=11, depth=depth)))
     launches = tuple(a - b for a, b in zip(
-        (face_cuda.face_cascade_launches, cd.cluster_device_launches,
-         pupil_cuda.pupil_walk_launches), before))
+        (LAUNCHES["face_cascade"], LAUNCHES["cluster_device"],
+         LAUNCHES["pupil_walk"]), before))
     _same_as_detect(det, frames, got, params, iou, 11)
-    dispatches = port_det.device_frame_waits
-    assert port_det.detect_fallbacks == 0
-    assert port_det.hit_cap_escalations >= 1
-    assert dispatches == len(frames) + port_det.hit_cap_escalations \
-        + port_det.face_slot_escalations
+    ladder = det.ladder
+    dispatches = ladder["device_frame_waits"]
+    assert ladder["detect_fallbacks"] == 0
+    assert ladder["hit_cap_escalations"] >= 1
+    assert dispatches == len(frames) + ladder["hit_cap_escalations"] \
+        + ladder["face_slot_escalations"]
     assert launches == (dispatches, dispatches, 2 * dispatches)
     assert counts["stream.dispatches"] == dispatches
     assert counts["stream.graph_replays"] == dispatches
@@ -685,6 +681,66 @@ def test_graph_cache_evicts_least_recently_used_on_card(cuda_device, gray,
         [False, False, True, True]
 
 
+def test_graph_capture_keeps_other_threads_launches_on_card(cuda_device,
+                                                           gray):
+    """A face_cascade launch that a second thread makes on its own stream
+    while a graph captures (and while it warms up) counts in LAUNCHES;
+    the graph's own launches, counted only at each replay, stay the one
+    face_cascade it captured, and the replays compute the launch."""
+    import queue
+    import threading
+
+    from pigo_tpu_torch.detector import _Graph
+
+    forest = load_facefinder()
+    ft = face_forest_from_numpy(forest.depth, forest.codes, forest.preds,
+                                forest.thresh, cuda_device)
+    plan = windows.build_window_plan(400, 320, **HEADLINE)
+    base, scale = face_cuda.device_plan(plan, cuda_device)
+    frames = torch.from_numpy(gray[None]).to(cuda_device)
+    tables = (ft.codes, ft.preds, ft.thresh, ft.num_trees)
+    mine, theirs = (torch.empty((1, plan.base.size), dtype=torch.float32,
+                                device=cuda_device) for _ in range(2))
+    want = face_cuda.face_cascade(frames, base, scale, *tables)
+    go, done = queue.Queue(), queue.Queue()
+    stream = torch.cuda.Stream(cuda_device)
+
+    def other():  # one launch for each call of fn, on its own stream
+        with torch.cuda.stream(stream):
+            for _ in range(2):
+                go.get()
+                try:
+                    face_cuda.face_cascade(frames, base, scale, *tables,
+                                           out=theirs)
+                finally:
+                    done.put(None)
+
+    def fn():
+        out = face_cuda.face_cascade(frames, base, scale, *tables,
+                                     out=mine)
+        go.put(None)
+        done.get()
+        return out
+
+    helper = threading.Thread(target=other, daemon=True)
+    helper.start()
+    graph = _Graph(cuda_device)
+    before = LAUNCHES["face_cascade"]
+    try:
+        mine.zero_()
+        got = graph.run(fn)
+    finally:
+        helper.join(60)
+    assert not helper.is_alive()
+    assert LAUNCHES["face_cascade"] == before + 2 + 1
+    assert dict(graph.launches) == {"face_cascade": 1}
+    mine.zero_()
+    assert graph.run(fn) is got
+    assert LAUNCHES["face_cascade"] == before + 2 + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(theirs, want)
+
+
 def test_host_tail_on_card_equals_all_card(cuda_device, gray):
     """FaceCascade(host_tail=True) on the card equals the all-card
     cascade on sample frames (stream, batch, upright and at 0.07) with one
@@ -694,9 +750,9 @@ def test_host_tail_on_card_equals_all_card(cuda_device, gray):
     ht = FaceCascade(host_tail=True)
     fc = FaceCascade()
     for angle in (0.0, 0.07):
-        before = face_cuda.face_cascade_launches
+        before = LAUNCHES["face_cascade"]
         got = list(ht.stream_hits(frames, angle=angle, depth=2, **HEADLINE))
-        assert face_cuda.face_cascade_launches == before + len(frames)
+        assert LAUNCHES["face_cascade"] == before + len(frames)
         want = list(fc.stream_hits(frames, angle=angle, depth=2, **HEADLINE))
         assert all(np.array_equal(a, b) for a, b in zip(got, want))
     for a, b in zip(ht.sparse_hits_batch(np.stack(frames), **HEADLINE),
@@ -730,10 +786,10 @@ def test_sharded_bands_match_single_card_on_card(cuda_device, gray):
             want = fc.sparse_hits(gray, 400, 320, angle=angle, **HEADLINE)
             assert want.shape[0] >= 2
             for n in (2, 4):
-                before = face_cuda.face_cascade_launches
+                before = LAUNCHES["face_cascade"]
                 got = sh.window_bands_hits(gray, 400, 320, n, angle=angle,
                                            **HEADLINE)
-                assert face_cuda.face_cascade_launches == before + n
+                assert LAUNCHES["face_cascade"] == before + n
                 assert np.array_equal(got, want)
                 assert np.array_equal(tiny.window_bands_hits(
                     gray, 400, 320, n, angle=angle, **HEADLINE), want)
@@ -777,13 +833,13 @@ def test_facial_landmark_demo_on_card_equals_detect(cuda_device, gray):
     frames = [np.repeat(g[:, :, None], 3, axis=2) for g in grays]
 
     sink = KeepSink()
-    face0 = face_cuda.face_cascade_launches
-    walk0 = pupil_cuda.pupil_walk_launches
+    face0 = LAUNCHES["face_cascade"]
+    walk0 = LAUNCHES["pupil_walk"]
     stats = facial_landmark.main([], source=[f.copy() for f in frames],
                                  sink=sink)
     assert stats["frames"] == 2
-    assert face_cuda.face_cascade_launches - face0 == 2
-    assert pupil_cuda.pupil_walk_launches - walk0 == 4
+    assert LAUNCHES["face_cascade"] - face0 == 2
+    assert LAUNCHES["pupil_walk"] - walk0 == 4
     det = FaceDetector()
     for i, g in enumerate(grays):
         want = engines.result_dicts(det.detect(
@@ -846,9 +902,9 @@ def _ensemble_against_composition(det, gray, device, f, perturbs=63,
     kw = dict(rows=400, cols=320, dim=320, angle=angle,
               u_rows=None if u_rows is None else (
                   u_rows if landmarks else (u_rows[0], None)))
-    before = pupil_cuda.pupil_walk_launches
+    before = LAUNCHES["pupil_walk"]
     got = port_det.fused_post(*args, **kw)
-    launches = pupil_cuda.pupil_walk_launches - before
+    launches = LAUNCHES["pupil_walk"] - before
     want = port_det.composed_post(*args, **kw)
     torch.cuda.synchronize()
     assert launches == (2 if landmarks else 1)
@@ -910,7 +966,7 @@ def test_ensemble_stream_rows_and_pad_slots_on_card(cuda_device, gray,
 
 def test_post_stage_on_card_is_two_launches(cuda_device, gray):
     """A post stage on the card is the two ensemble launches: detect adds
-    exactly 2 to pupil_walk_launches, and 1 to the program counter
+    exactly 2 to LAUNCHES["pupil_walk"], and 1 to the program counter
     post.fused while a profiler records; every launch of kernel C keeps
     pupil_walk_kernel in its name."""
     from pigo_tpu_torch.utils import profiling
@@ -922,14 +978,14 @@ def test_post_stage_on_card_is_two_launches(cuda_device, gray):
     det = FaceDetector(device=cuda_device)
     det.detect(gray, 400, 320, params, iou_threshold=c["iou"])
     profiling.TRACE.reset()
-    before = pupil_cuda.pupil_walk_launches
+    before = LAUNCHES["pupil_walk"]
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         res = det.detect(gray, 400, 320, params, iou_threshold=c["iou"])
         torch.cuda.synchronize()
     assert len(res) == 1 and len(res[0].landmarks) == 15
-    assert pupil_cuda.pupil_walk_launches - before == 2
+    assert LAUNCHES["pupil_walk"] - before == 2
     counts = profiling.TRACE.as_dict()["counts"]
     assert counts.get("post.fused") == 1 and counts.get("post.slots") == 1
     walks = [e.name for e in prof.events()

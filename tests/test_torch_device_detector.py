@@ -207,14 +207,12 @@ def _check_stream(det, frames, params, iou, angle, seed, depth):
     return got
 
 
-def _reset_counts():
-    port_det.face_slot_escalations = port_det.hit_cap_escalations = 0
-    port_det.detect_fallbacks = port_det.device_frame_waits = 0
-
-
-def _counts():
-    return (port_det.face_slot_escalations, port_det.hit_cap_escalations,
-            port_det.detect_fallbacks, port_det.device_frame_waits)
+def _counts(det):
+    """det's ladder: (face-slot escalations, hit-cap escalations, detect
+    fallbacks, host waits)."""
+    return tuple(det.ladder[k] for k in (
+        "face_slot_escalations", "hit_cap_escalations", "detect_fallbacks",
+        "device_frame_waits"))
 
 
 @pytest.fixture(scope="module")
@@ -231,12 +229,11 @@ def test_stream_device_equals_detect_upright(depth, sample_gray):
                               sample_gray], axis=1) for i in range(3)]
     frames.insert(1, np.zeros_like(frames[0]))
     det = FaceDetector(device="cpu", device_caps=(4096, 0, 1))
-    _reset_counts()
     got = _check_stream(det, frames, *TWO, 0.0, seed=5, depth=depth)
     assert [len(r) for r in got] == [2, 0, 2, 2]
     assert all(len(f.eyes) == 2 and len(f.landmarks) == 15
                for r in got for f in r)
-    assert _counts() == (3, 0, 0, 7)
+    assert _counts(det) == (3, 0, 0, 7)
 
 
 @pytest.mark.parametrize("depth", [1, 3])
@@ -246,7 +243,7 @@ def test_stream_device_equals_detect_rotated(depth, sample_gray, det):
     profiler, the program's spans count each frame's dispatch, collect
     and wait."""
     frames = [np.roll(sample_gray, i, axis=1) for i in range(2)]
-    _reset_counts()
+    det.ladder.clear()
     profiling.TRACE.reset()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
@@ -254,7 +251,7 @@ def test_stream_device_equals_detect_rotated(depth, sample_gray, det):
                             depth=depth)
     assert [len(r) for r in got] == [1, 1]
     assert len(got[0][0].landmarks) == 15
-    assert _counts() == (0, 0, 0, 2)
+    assert _counts(det) == (0, 0, 0, 2)
     assert {k: v.calls for k, v in profiling.TRACE.stages.items()
             if k.startswith("stream.")} == {
         "stream.dispatch": 2, "stream.collect": 2, "stream.wait": 2}
@@ -270,7 +267,6 @@ def test_device_stream_runs_op_by_op_on_cpu(sample_gray):
     det = FaceDetector(device="cpu", device_caps=(4096, 0, 1))
     params, iou = TWO
     stream = port_det.DeviceStream(det, (params, 0.0, iou, P), depth=2)
-    _reset_counts()
     profiling.TRACE.reset()
     got = []
     with torch.profiler.profile(
@@ -283,7 +279,7 @@ def test_device_stream_runs_op_by_op_on_cpu(sample_gray):
             got.append(stream.collect_oldest())
     counts = profiling.TRACE.as_dict()["counts"]
     profiling.TRACE.reset()
-    assert _counts() == (2, 0, 0, 4)  # each frame climbs from one slot
+    assert _counts(det) == (2, 0, 0, 4)  # each frame climbs from one slot
     assert counts["stream.dispatches"] == 4
     assert "stream.graph_replays" not in counts
     assert "stream.graph_captures" not in counts
@@ -308,10 +304,25 @@ def test_stream_device_ladder(rung, sample_gray, monkeypatch):
     }[rung]
     monkeypatch.setattr(port_det, "DEV_CAPS_ESCALATED", escalated)
     det = FaceDetector(device="cpu", device_caps=caps)
-    _reset_counts()
     [got] = _check_stream(det, [frame], *TWO, 0.0, seed=1, depth=1)
     assert len(got) == 2
-    assert _counts() == want
+    assert _counts(det) == want
+
+
+def test_ladder_counts_on_its_own_detector(sample_gray):
+    """Each detector keeps its own ladder: a frame of two faces climbs
+    the face-slot rung of a detector with one slot, while a second
+    detector on the same models counts nothing until it runs, and then
+    only its own wait."""
+    frame = np.concatenate([sample_gray, sample_gray], axis=1)
+    one = FaceDetector(device="cpu", device_caps=(4096, 0, 1))
+    other = FaceDetector(one.face, one.pupil, one.landmarks, device="cpu")
+    _check_stream(one, [frame], *TWO, 0.0, seed=1, depth=1)
+    assert _counts(one) == (1, 0, 0, 2)
+    assert not other.ladder
+    _check_stream(other, [frame], *TWO, 0.0, seed=1, depth=1)
+    assert _counts(other) == (0, 0, 0, 1)
+    assert _counts(one) == (1, 0, 0, 2)
 
 
 @pytest.mark.parametrize("mode", [{"prefix": True}, {"tree_cap": 32}])
@@ -320,11 +331,10 @@ def test_stream_device_in_other_face_modes(mode, sample_gray):
     before `compact_hits`, so the device stream equals `detect` there
     too."""
     det = FaceDetector(face=FaceCascade(device="cpu", **mode), device="cpu")
-    _reset_counts()
     [got] = _check_stream(det, [sample_gray], *GOLDEN, 0.0, seed=4,
                           depth=1)
     assert len(got) == 1 and len(got[0].landmarks) == 15
-    assert _counts() == (0, 0, 0, 1)
+    assert _counts(det) == (0, 0, 0, 1)
 
 
 def test_stream_device_partial_configurations(sample_gray):
@@ -333,12 +343,11 @@ def test_stream_device_partial_configurations(sample_gray):
     for with_pupils in (True, False):
         det = FaceDetector(device="cpu", with_pupils=with_pupils,
                            with_landmarks=False)
-        _reset_counts()
         got = _check_stream(det, frames, *GOLDEN, 0.0, seed=2, depth=2)
         assert [len(r) for r in got] == [1, 1]
         assert all(len(f.eyes) == (2 if with_pupils else 0)
                    and not f.landmarks for r in got for f in r)
-        assert _counts() == (0, 0, 0, 0)
+        assert _counts(det) == (0, 0, 0, 0)
 
 
 def test_stream_device_rules(sample_gray):
@@ -348,10 +357,9 @@ def test_stream_device_rules(sample_gray):
         with pytest.raises(ValueError, match="device_caps"):
             FaceDetector(device="cpu", device_caps=caps)
     det = FaceDetector(device="cpu")
-    _reset_counts()
     assert list(det.detect_stream_device([sample_gray[:10, :10]],
                                          *GOLDEN)) == [[]]
-    assert _counts() == (0, 0, 0, 0)
+    assert _counts(det) == (0, 0, 0, 0)
 
 
 def test_stream_device_faces_match_jax(sample_gray, det):
@@ -386,7 +394,6 @@ def test_stream_device_gathers_jitter_by_rank(sample_gray, det,
     frame[:, :320] = sample_gray
     frame[150:150 + small.shape[0], 330:330 + small.shape[1]] = small
     cfg, iou = (40, 400, 0.2, 1.2), 0.1
-    _reset_counts()
     [got] = _check_stream(det, [frame], CascadeParams(*cfg), iou, 0.0,
                           seed=0, depth=1)
     assert [(r.face.row, r.face.col, r.face.scale, len(r.eyes))

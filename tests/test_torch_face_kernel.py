@@ -278,9 +278,9 @@ def test_wrapper_cpu_runs_plain_without_launch():
     frames = np.random.default_rng(6).integers(0, 256, (2, 40, 50),
                                                dtype=np.uint8)
     cfg = dict(min_size=10, max_size=40, shift_factor=0.2, scale_factor=1.2)
-    before = face_cuda.face_cascade_launches
+    before = build.LAUNCHES["face_cascade"]
     got = port_scores(forest, frames, cfg)
-    assert face_cuda.face_cascade_launches == before  # no kernel on the CPU
+    assert build.LAUNCHES["face_cascade"] == before  # no kernel on the CPU
     ft = face_forest_from_numpy(forest.depth, forest.codes, forest.preds,
                                 forest.thresh)
     plan = windows.build_window_plan(40, 50, **cfg)
@@ -358,3 +358,56 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.load("k", lambda lib: None)
     assert "k" not in build._libs
+
+
+def test_recording_counts_only_its_own_threads_launches():
+    """Within build.recording() this thread's launches count into its
+    recorder (a nested one keeps its own), another thread's into LAUNCHES;
+    outside it they count into LAUNCHES, as a CUDA graph's replay adds
+    what its capture recorded."""
+    import collections
+    import threading
+
+    before = build.LAUNCHES.copy()
+    with build.recording() as outer:
+        build.count("face_cascade")
+        with build.recording() as inner:
+            build.count("pupil_walk", 2)
+        other = threading.Thread(target=build.count,
+                                 args=("cluster_device",))
+        other.start()
+        other.join(60)
+        build.count("face_cascade")
+    assert not other.is_alive()
+    assert dict(outer) == {"face_cascade": 2}
+    assert dict(inner) == {"pupil_walk": 2}
+    assert build.LAUNCHES - before == collections.Counter(cluster_device=1)
+    for kernel, n in outer.items():
+        build.count(kernel, n)
+    assert build.LAUNCHES - before == collections.Counter(
+        cluster_device=1, face_cascade=2)
+
+
+def test_launch_tally_loses_no_update_across_threads():
+    """Threads counting at once, switched every few microseconds, lose
+    no launch in LAUNCHES."""
+    import os
+    import sys
+    import threading
+
+    threads, each = min(2 * (os.cpu_count() or 1) + 1, 64), 5000
+    before = build.LAUNCHES["face_cascade"]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=lambda: [
+            build.count("face_cascade") for _ in range(each)])
+            for _ in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(w.is_alive() for w in workers)
+    assert build.LAUNCHES["face_cascade"] == before + threads * each

@@ -465,8 +465,6 @@ def test_stream_device_host_tail_equals_detect(caps, sample_gray):
                         scale_factor=1.2)
     routed = det.face._plan(*quad.shape, *vars(prm).values())[0]
     assert routed.host_ranges and routed.segments
-    port_det.hit_cap_escalations = port_det.device_frame_waits = 0
-    port_det.face_slot_escalations = port_det.tail_cap_escalations = 0
     got = list(det.detect_stream_device(frames, prm, iou_threshold=0.1,
                                         seed=4, depth=2))
     want = [det.detect(f, *f.shape, prm, iou_threshold=0.1,
@@ -476,13 +474,14 @@ def test_stream_device_host_tail_equals_detect(caps, sample_gray):
         assert [r.to_json_dict() for r in a] == [r.to_json_dict() for r in b]
         assert [r.face.q for r in a] == [r.face.q for r in b]
     assert len(got[2]) == 4
+    ladder = det.ladder
     if caps is None:
-        assert port_det.hit_cap_escalations == 0
-        assert port_det.device_frame_waits == len(frames) \
-            + port_det.face_slot_escalations
+        assert ladder["hit_cap_escalations"] == 0
+        assert ladder["device_frame_waits"] == len(frames) \
+            + ladder["face_slot_escalations"]
     else:
-        assert port_det.hit_cap_escalations == len(frames)
-        assert port_det.tail_cap_escalations == len(frames)
+        assert ladder["hit_cap_escalations"] == len(frames)
+        assert ladder["tail_cap_escalations"] == len(frames)
     tails = det.face._dispatch(quad[None], det.face._single, vars(prm)).tail
     assert tails[0].shape[0] > 1
 

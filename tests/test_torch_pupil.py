@@ -39,6 +39,7 @@ from pigo_tpu_torch import LandmarkLocalizer, PupilLocalizer, Puploc
 from pigo_tpu_torch.cascade import assets, format as port_format
 from pigo_tpu_torch.convert import pupil_forest_from_numpy
 from pigo_tpu_torch.ops import pupil_cuda, pupil_dense
+from pigo_tpu_torch.utils.build import LAUNCHES
 from test_torch_face_kernel import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -314,10 +315,10 @@ def test_kernel_wrapper_on_cpu_matches_pallas(sample_gray, flp, jax_flp):
     starts = (np.repeat(cid, p), np.array(r0).reshape(-1),
               np.array(c0).reshape(-1), np.array(s0).reshape(-1),
               np.repeat(sign, p))
-    before = pupil_cuda.pupil_walk_launches
+    before = LAUNCHES["pupil_walk"]
     got = _port_walk(flp.tensors, starts, sample_gray,
                      walk=pupil_cuda.pupil_walk)
-    assert pupil_cuda.pupil_walk_launches == before  # CPU: no launch
+    assert LAUNCHES["pupil_walk"] == before  # CPU: no launch
     for x, y in zip(got, (want_r, want_c, want_s)):
         assert np.array_equal(_bits(x.numpy()), _bits(y))
 
@@ -373,7 +374,7 @@ def test_ensemble_wrapper_checks_before_the_card(flp, sample_gray):
             t.codes, t.preds, a.pop("out"), a.pop("u"), a.pop("pixels"),
             **a, **kw)
 
-    before = pupil_cuda.pupil_walk_launches
+    before = LAUNCHES["pupil_walk"]
     with pytest.raises(ValueError, match="runs on cuda"):
         call()
     with pytest.raises(ValueError, match="runs on cuda"):
@@ -394,7 +395,7 @@ def test_ensemble_wrapper_checks_before_the_card(flp, sample_gray):
             (dict(pixels=ok["pixels"][:1000]), "pixels")):
         with pytest.raises(ValueError, match=match):
             call(**bad)
-    assert pupil_cuda.pupil_walk_launches == before
+    assert LAUNCHES["pupil_walk"] == before
 
 
 @pytest.mark.parametrize("bad_id", [-1, 9])
